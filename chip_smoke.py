@@ -4,28 +4,42 @@ Run from the repository root, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``sugar_tpu_torch/csrc`` (into
-``sugar_tpu_torch/_build``), then:
+It builds the port's three CUDA kernels from ``sugar_tpu_torch/csrc``
+(into ``sugar_tpu_torch/_build``, one nvcc process each, all started
+together), then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. prints the kernel build time and ptxas's register report;
-3. holds the compositing kernel against its plain PyTorch version on the
-   card: a small synthetic case (unaligned ranges, empty tiles, a range
-   spanning several chunks, early exit, NaN conic/opacity on dropped
-   slots, k_max clipping), then the full-width inputs of the slice's
-   first view;
-4. drives the slice: a 1M-Gaussian SH-degree-3 model with trained-
+2. prints each kernel's build time and ptxas's register/spill report;
+3. holds each kernel against its plain PyTorch version on the card:
+   K1 (compositing forward) and K2 (compositing backward) on a small
+   synthetic case (unaligned ranges, empty tiles, a range spanning several
+   chunks, early exit, NaN conic/opacity on dropped slots, k_max
+   clipping), K3 (gradient segment-sum) on the cases of
+   tests/test_segsum.py; then all three at full width on the inputs of
+   the first view of a 1M-Gaussian SH-degree-3 model with trained-
    checkpoint statistics (the trained scene of bench.py, with random
-   degree-3 SH) is written with the port's ``save_ply``, loaded with
-   ``load_ply(device="cuda")`` and rendered at 512x512 from 8 views on a
-   ring through ``render_adaptive`` + ``render_model``. It checks the
-   overflow counters, the kernel's launch count, the images, and the PSNR
-   between the kernel render and the plain render of the first view, and
-   times a view, the kernel and its plain version with CUDA events;
-5. prints one JSON line per kernel, the card line, and last
+   degree-3 SH), written with the port's ``save_ply`` and loaded with
+   ``load_ply(device="cuda")``;
+4. serving: renders that model at 512x512 from 8 views on a ring through
+   ``render_adaptive`` + ``render_model`` and checks the overflow
+   counters, K1's launch count, the images and the PSNR of the kernel
+   render against the plain render of the first view;
+5. card against CPU: ``render_params`` and a loss backward on a small
+   scene on the card (the kernels) and on the CPU (the plain versions),
+   parameter and ndc_offset gradients compared;
+6. fwd+bwd at full width: bench.py's 1M-Gaussian trained scene at
+   512x512, loss = sum(image^2), gradients of all five inputs;
+7. training: ``train_vanilla_3dgs`` for 30 iterations on bench.py's
+   train-step scene (2^18 Gaussians, SH 0, 512x512) padded to 327,680
+   slots, with perturbed colors against renders of the unperturbed scene
+   from the 8 ring cameras; densify (after iteration 25) and opacity
+   reset (after 30) each run; then the train step timed with CUDA events
+   and traced under torch.profiler;
+8. prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}`` — only when every check passed.
 
-It exits non-zero, printing no result, without a CUDA card.
+Each path runs with the launch counts set to 0 just before it and read
+just after. It exits non-zero, printing no result, without a CUDA card.
 """
 
 from __future__ import annotations
@@ -46,22 +60,30 @@ import torch
 from sugar_tpu_torch import native
 from sugar_tpu_torch.core.cameras import make_camera
 from sugar_tpu_torch.core.sh import C0
-from sugar_tpu_torch.interop import model_from_numpy
-from sugar_tpu_torch.models.gaussians import PARAM_FIELDS, load_ply, save_ply
-from sugar_tpu_torch.models.render import render_model
+from sugar_tpu_torch.interop import model_from_numpy, params_from_numpy
+from sugar_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianParams, load_ply, save_ply
+from sugar_tpu_torch.models.render import render_model, render_params
 from sugar_tpu_torch.raster import adaptive
 from sugar_tpu_torch.raster import common as rc
+from sugar_tpu_torch.raster.api import rasterize_gaussians
 from sugar_tpu_torch.raster.dup_gather import round8
 from sugar_tpu_torch.raster.fused import assemble_tiles, bin_and_gather
 from sugar_tpu_torch.raster.preprocess import preprocess
+from sugar_tpu_torch.raster.segsum import segment_sum_cuda, segment_sum_plain
 from sugar_tpu_torch.raster.tile_composite import (
     C_CHUNK,
     CompositeOut,
     tile_composite,
+    tile_composite_bwd_cuda,
+    tile_composite_bwd_plain,
     tile_composite_cuda,
     tile_composite_plain,
 )
+from sugar_tpu_torch.trainers import optimizer as opt
+from sugar_tpu_torch.trainers.vanilla import TrainConfig, make_train_step, train_vanilla_3dgs
 from sugar_tpu_torch.utils.losses import psnr
+
+KERNELS = (tile_composite_cuda, tile_composite_bwd_cuda, segment_sum_cuda)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "sugar_tpu_torch", "_build", "smoke")
@@ -91,11 +113,34 @@ ATOL_IMAGE = 1e-4
 NCONTRIB_MISMATCH_SHARE = 1e-4
 ATOL_ENTRY_P = 1e-4
 MIN_PSNR_DB = 60.0
+# K2 against its plain version: per gradient block (mean2d, conic,
+# opacity, color), max abs difference <= BWD_RTOL * max|d| of the block.
+# The two take the 256-pixel sums, the suffix sums and the running
+# products in other orders (warp trees and sequential products against
+# torch sums and scans); a pixel whose product lands within rounding of
+# T_EPS can include one slot more or less, at a transmittance of ~1e-4.
+BWD_RTOL = 1e-4
+# K3 against its plain version (index_add_ on the card, atomics in any
+# order): rtol and atol 1e-5, as tests/test_segsum.py; at full width the
+# atol scales with max|out|.
+SEGSUM_TOL = 1e-5
+# Card (kernels) against CPU (plain versions), gradients of a small scene:
+# max abs difference <= CARD_CPU_RTOL * max|g| per parameter (float32
+# elementwise functions and sum orders differ between the two devices).
+CARD_CPU_RTOL = 1e-4
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # fp32 operations/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+
+# The training path: bench.py's _bench_train_step scene and caps.
+TRAIN_N = 2**18
+TRAIN_CAPACITY = 327_680
+TRAIN_SEED = 2
+TRAIN_ITERS = 30
+TRAIN_CAPS = adaptive.RasterCaps(tile_cap=16, dup_capacity=1_200_000, k_max=12288)
+TIMED_STEPS = 10
 
 
 def _ops_per_eval(ch: int) -> int:
@@ -104,6 +149,19 @@ def _ops_per_eval(ch: int) -> int:
     clamp (2), cutoff gate (2), the running product (2), the include test
     (1), and the weighted color sum (2 + 2 per channel)."""
     return 23 + 2 * ch
+
+
+def _ops_per_eval_bwd(ch: int) -> int:
+    """fp32 operations the compositing backward needs per (pixel, slot),
+    counted once (the kernel evaluates alpha twice): the alpha evaluation
+    (18: offsets 2, quadratic 9, power gate 2, exp 1, opacity and clamp 2,
+    cutoff gate 2), the running product and include test (3), w (1), c . g
+    (2 per channel), the suffix (w (c . g), running sum, total minus it,
+    plus the carry: 4), dL/dalpha (max, divide, multiply, subtract,
+    select: 5), dpower (2), the mean2d terms (8), the conic terms (8), the
+    opacity term (1), the color terms (1 per channel), and one add per
+    gradient row to sum the 256 pixels (6 + 1 per channel)."""
+    return 56 + 4 * ch
 
 
 # --- the scene (numpy, from a seed) -------------------------------------
@@ -251,6 +309,84 @@ def synthetic_case(seed: int = 0):
     return start, count, data, tiles_x, ch, max_chunks
 
 
+def composite_cotangents(num_tiles: int, ch: int, seed: int):
+    """Cotangents of the tile images (T, 256, CH) and of final_T (T, 256)."""
+    g = np.random.default_rng(seed)
+    p = rc.TILE_X * rc.TILE_Y
+    return (g.uniform(-1, 1, (num_tiles, p, ch)).astype(np.float32),
+            g.uniform(-1, 1, (num_tiles, p)).astype(np.float32))
+
+
+def segsum_case(rng: np.random.Generator, n: int, d: int, seg: int):
+    """tests/test_segsum.py's case: (16, d) cotangents, ascending ids with
+    up to ``seg`` slots each, sentinel n on the rest (nonzero data)."""
+    counts = rng.integers(0, seg + 1, n)
+    gid = np.repeat(np.arange(n), counts)[:d]
+    if len(gid) < d:
+        gid = np.concatenate([gid, np.full(d - len(gid), n)])
+    gid = np.sort(gid).astype(np.int32)
+    ct = rng.normal(size=(16, d)).astype(np.float32)
+    ct[:, gid >= n] = rng.normal(size=(16, int((gid >= n).sum())))
+    return ct, gid
+
+
+def segsum_cases():
+    """The four cases of tests/test_segsum.py: {name: (ct, gid, n)}."""
+    out = {}
+    rng = np.random.default_rng(0)
+    for n, d, seg in [(64, 100, 5), (1000, 3000, 16), (300, 257, 3)]:
+        out[f"n{n}_d{d}_seg{seg}"] = (*segsum_case(rng, n, d, seg), n)
+    ct, gid = segsum_case(np.random.default_rng(2), 128, 512, 4)
+    out["odd_rows"] = (ct[:9], gid, 128)
+    rng = np.random.default_rng(3)
+    gid = np.sort(rng.choice(50_000, size=2048, replace=False)).astype(np.int32)
+    out["sparse_ids"] = (rng.normal(size=(16, 2048)).astype(np.float32), gid, 50_000)
+    return out
+
+
+def small_scene(n: int = 200, seed: int = 3, spread: float = 1.2):
+    """tests/test_raster.py's make_scene: (means, scales, quats, opacities,
+    colors) in front of a camera at the origin."""
+    g = np.random.default_rng(seed)
+    means = np.stack(
+        [g.uniform(-spread, spread, n), g.uniform(-spread, spread, n), g.uniform(1.0, 6.0, n)],
+        axis=-1,
+    ).astype(np.float32)
+    scales = np.exp(g.uniform(np.log(0.02), np.log(0.25), (n, 3))).astype(np.float32)
+    quats = g.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    opac = g.uniform(0.05, 0.95, n).astype(np.float32)
+    colors = g.uniform(0, 1, (n, 3)).astype(np.float32)
+    return means, scales, quats, opac, colors
+
+
+def pad_fields(d: dict[str, np.ndarray], capacity: int) -> tuple[dict, np.ndarray]:
+    """Pad raw fields to ``capacity`` with load_ply's fill values; returns
+    (fields, alive)."""
+    n = d["xyz"].shape[0]
+    fill = dict(opacity_logit=-10.0, log_scales=-10.0)
+    out = {}
+    for k, v in d.items():
+        pad = np.full((capacity - n,) + v.shape[1:], fill.get(k, 0.0), np.float32)
+        out[k] = np.concatenate([v.astype(np.float32), pad])
+    out["quaternions"][n:, 0] = 1.0
+    return out, np.arange(capacity) < n
+
+
+def train_scene_fields(n: int, seed: int) -> dict[str, np.ndarray]:
+    """bench.py's _bench_train_step parameters: the trained scene at SH
+    degree 0 (sh_rest has no coefficients)."""
+    means, scales, quats, opac, colors = scene_trained(n, np.random.default_rng(seed))
+    return dict(
+        xyz=means,
+        sh_dc=((colors - 0.5) / C0).astype(np.float32),
+        sh_rest=np.zeros((n, 3, 0), np.float32),
+        opacity_logit=np.log(opac / (1 - opac)).astype(np.float32),
+        log_scales=np.log(scales).astype(np.float32),
+        quaternions=quats,
+    )
+
+
 # --- measurement helpers ------------------------------------------------
 
 
@@ -337,9 +473,81 @@ def composite_bound(tile_start, tile_count, nch, ch: int, max_chunks: int) -> di
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=bytes_in + bytes_out,
+        bytes_in=bytes_in,
         ops=ops,
         slot_evals=int(slots) * p,
     )
+
+
+GRAD_BLOCKS = {"mean2d": (0, 2), "conic": (2, 5), "opacity": (5, 6)}
+
+
+def compare_bwd(kern: torch.Tensor, plain: torch.Tensor, ch: int) -> dict:
+    """Per gradient block of d_packed: max abs difference, max|plain| and
+    whether the difference is within BWD_RTOL of it."""
+    blocks = dict(GRAD_BLOCKS, color=(6, 6 + ch))
+    out = {}
+    for name, (lo, hi) in blocks.items():
+        diff = float((kern[lo:hi] - plain[lo:hi]).abs().max())
+        scale = float(plain[lo:hi].abs().max())
+        out[name] = dict(max_abs_err=diff, max_abs=scale, ok=diff <= BWD_RTOL * scale + 1e-9)
+    return out
+
+
+def owned_mask(tile_start, tile_count, d_pad: int, max_chunks: int) -> torch.Tensor:
+    """(d_pad,) bool: the slots some tile's (clipped) range covers."""
+    count = torch.clamp(tile_count.to(torch.int64), max=max_chunks * C_CHUNK)
+    marks = torch.zeros(d_pad + 1, dtype=torch.int64, device=tile_start.device)
+    start = tile_start.to(torch.int64)
+    marks.index_add_(0, start, (count > 0).to(torch.int64))
+    marks.index_add_(0, start + count, -(count > 0).to(torch.int64))
+    return torch.cumsum(marks, 0)[:d_pad] > 0
+
+
+def composite_bwd_bound(tile_start, tile_count, nch, ch: int, max_chunks: int, d_pad: int) -> dict:
+    """Least time on the card for the compositing backward on these
+    inputs: bytes (the live rows of the distinct processed chunks, the
+    processed entry_p rows, the image and final_T cotangents, final_T,
+    the ranges, read once; the 6+CH live rows of d_packed written once) at
+    the HBM rate, against _ops_per_eval_bwd operations per (pixel, walked
+    slot) at the fp32 rate."""
+    fwd = composite_bound(tile_start, tile_count, nch, ch, max_chunks)
+    num_tiles = tile_start.shape[0]
+    p = rc.TILE_X * rc.TILE_Y
+    # K1's reads, plus entry_p's processed rows, g_img, gt_total, final_T
+    # and nch.
+    bytes_in = (fwd["bytes_in"] + int(nch.sum()) * p * 4 + num_tiles * p * (ch + 2) * 4
+                + num_tiles * 4)
+    bytes_out = (6 + ch) * d_pad * 4
+    ops = fwd["slot_evals"] * _ops_per_eval_bwd(ch)
+    t_bytes = (bytes_in + bytes_out) / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=bytes_in + bytes_out, ops=ops, slot_evals=fwd["slot_evals"])
+
+
+def segsum_bound(rows: int, live: int, n: int) -> dict:
+    """Least time on the card for the segment sum: the (rows, live)
+    cotangent columns and the live ids read once and the (rows, n) output
+    written once, at the HBM rate, against one add per live value at the
+    fp32 rate. ``live`` counts the columns whose id is < n: the sentinel
+    columns sorted past them are dropped, so the function needs none of
+    their bytes."""
+    nbytes = rows * live * 4 + live * 4 + rows * n * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = rows * live / PEAK_FP32_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launches() -> tuple[int, int, int]:
+    """(K1, K2, K3) launches since the last reset."""
+    return tuple(k.launches for k in KERNELS)
 
 
 def stage_times(model, cam, kw: dict, reps: int = 5) -> dict[str, float]:
@@ -371,10 +579,11 @@ def stage_times(model, cam, kw: dict, reps: int = 5) -> dict[str, float]:
     return {k: statistics.median(v) for k, v in st.items()}
 
 
-def profile_device(fn, top: int = 12):
-    """(wall ms, device-busy ms, [(kernel name, ms, calls)]) of one fn()
-    call under torch.profiler (CUPTI); busy = the sum of the device
-    activities' durations (one stream: they do not overlap)."""
+def profile_device(fn, top: int | None = 12):
+    """(wall ms, device-busy ms, [(kernel name, ms, calls)], the ``top``
+    most expensive or all when None) of one fn() call under torch.profiler
+    (CUPTI); busy = the sum of the device activities' durations (one
+    stream: they do not overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -392,10 +601,254 @@ def profile_device(fn, top: int = 12):
             acc[1] += 1
     busy = sum(v[0] for v in by_name.values())
     ranked = sorted(((k, v[0], v[1]) for k, v in by_name.items()), key=lambda r: -r[1])
-    return wall_ms, busy, ranked[:top]
+    return wall_ms, busy, ranked if top is None else ranked[:top]
 
 
 # --- the phases ---------------------------------------------------------
+
+
+class Checks:
+    """Collects failed checks; every check prints its outcome."""
+
+    def __init__(self):
+        self.failures: list[str] = []
+
+    def __call__(self, ok: bool, what: str) -> None:
+        print(f"  [{'ok' if ok else 'FAIL'}] {what}", flush=True)
+        if not ok:
+            self.failures.append(what)
+
+
+def phase_builds() -> None:
+    t0 = time.perf_counter()
+    built = native.build_all()
+    print(f"[2] kernel builds (nvcc x{len(built)}, started together): "
+          f"{time.perf_counter() - t0:.2f} s wall")
+    for name, (secs, log) in built.items():
+        print(f"    {name}: {secs:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"      ptxas: {line.strip()}")
+
+
+def check_k2(check, fwd: CompositeOut, args, g_img, gt_total, label: str):
+    """K2 against its plain version on one case; returns (kernel d_packed,
+    max abs error over the blocks)."""
+    start, count, dup, tiles_x, ch, max_chunks = args
+    bwd_args = (start, count, fwd.nch, dup, g_img, gt_total, fwd.final_t, fwd.entry_p,
+                tiles_x, ch, max_chunks)
+    kern = tile_composite_bwd_cuda(*bwd_args)
+    torch.cuda.synchronize()
+    plain = tile_composite_bwd_plain(*bwd_args)
+    d = compare_bwd(kern, plain, ch)
+    print(f"[3] K2 vs plain, {label}: {json.dumps(d)}")
+    check(all(v["ok"] for v in d.values()),
+          f"K2 {label} agrees with the plain version within {BWD_RTOL} x max|d| per block")
+    owned = owned_mask(start, count, dup.shape[1], max_chunks)
+    check(float(kern[:, ~owned].abs().max()) == 0.0 and float(kern[6 + ch:].abs().max()) == 0.0,
+          f"K2 {label}: slots no tile owns and padding rows are exactly 0")
+    check(bool(torch.isfinite(kern).all()), f"K2 {label}: d_packed finite (NaN slots gated)")
+    return kern, bwd_args, max(v["max_abs_err"] for v in d.values())
+
+
+def check_k3(check, ct, gid, n, label: str, tol_scale: float = 1.0) -> float:
+    kern = segment_sum_cuda(ct, gid, n)
+    torch.cuda.synchronize()
+    plain = segment_sum_plain(ct, gid, n)
+    err = float((kern - plain).abs().max())
+    bound = SEGSUM_TOL * tol_scale + SEGSUM_TOL * float(plain.abs().max())
+    print(f"[3] K3 vs plain, {label}: rows {ct.shape[0]}, slots {ct.shape[1]}, n {n}, "
+          f"max abs err {err:.3e} (bound {bound:.3e})")
+    check(err <= bound and tuple(kern.shape) == (ct.shape[0], n),
+          f"K3 {label} agrees with the plain version")
+    return err
+
+
+def phase_card_vs_cpu(check, dev) -> None:
+    """render_params + loss backward on a small scene: card against CPU."""
+    means, scales, quats, opac, colors = small_scene()
+    n = means.shape[0]
+    rest = np.random.default_rng(7).normal(0, 0.2, (n, 3, 15)).astype(np.float32)
+    d, alive = pad_fields(dict(
+        xyz=means, sh_dc=(colors - 0.5) / C0, sh_rest=rest,
+        opacity_logit=np.log(opac / (1 - opac)), log_scales=np.log(scales), quaternions=quats,
+    ), 224)
+    target = np.random.default_rng(0).uniform(0, 1, (48, 64, 3)).astype(np.float32)
+
+    def grads(device):
+        p = params_from_numpy(d, device=device)
+        leaves = [getattr(p, f).requires_grad_(True) for f in PARAM_FIELDS]
+        off = torch.zeros((d["xyz"].shape[0], 2), device=device, requires_grad=True)
+        cam = make_camera(np.eye(3), np.zeros(3), 1.2, 1.0, 48, 64, device=device)
+        out = render_params(GaussianParams(**dict(zip(PARAM_FIELDS, leaves))),
+                            torch.as_tensor(alive, device=device), cam, 3,
+                            torch.tensor([0.1, 0.2, 0.3], device=device), ndc_offset=off,
+                            dup_capacity=8192, k_max=512)
+        loss = (torch.mean((out["image"] - torch.as_tensor(target, device=device)) ** 2)
+                + 0.1 * torch.mean(out["final_T"]))
+        g = torch.autograd.grad(loss, leaves + [off])
+        return float(loss), {k: x.cpu() for k, x in zip(list(PARAM_FIELDS) + ["ndc_offset"], g)}
+
+    reset_launches()
+    loss_card, g_card = grads(dev)
+    torch.cuda.synchronize()
+    counts = launches()
+    loss_cpu, g_cpu = grads("cpu")
+    rows = {}
+    for k in g_cpu:
+        scale = float(g_cpu[k].abs().max())
+        rows[k] = (float((g_card[k] - g_cpu[k]).abs().max()), scale)
+    print(f"[5] card vs CPU, 200-Gaussian SH-3 scene at 48x64: loss {loss_card:.7f} / "
+          f"{loss_cpu:.7f}; launches (K1, K2, K3) {counts}")
+    for k, (err, scale) in rows.items():
+        print(f"    d {k}: max abs diff {err:.3e}, max|g| {scale:.3e}")
+    check(counts == (1, 1, 1), "card run launched K1, K2 and K3 once each")
+    check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu), "card loss equals the CPU loss")
+    check(all(err <= CARD_CPU_RTOL * scale + 1e-9 and scale > 0 for err, scale in rows.values()),
+          f"card gradients within {CARD_CPU_RTOL} x max|g| of the CPU's")
+
+
+def phase_fwd_bwd(check, dev, settings) -> dict:
+    """bench.py's fwd+bwd at full width: the trained 1M scene's raw arrays,
+    loss = sum(image^2), gradients of the five inputs."""
+    arrays = scene_trained(N_GAUSS, np.random.default_rng(SCENE_SEED))
+    raw = [torch.as_tensor(x, device=dev).requires_grad_(True) for x in arrays]
+
+    def fwd_bwd():
+        out = rasterize_gaussians(
+            raw[0], raw[3], settings, scales=raw[1], quaternions=raw[2], colors=raw[4],
+            dup_capacity=CAPS.dup_capacity, tile_cap=CAPS.tile_cap, k_max=CAPS.k_max,
+        )
+        loss = torch.sum(out["image"] ** 2)
+        return out, torch.autograd.grad(loss, raw)
+
+    reset_launches()
+    out, g = fwd_bwd()
+    torch.cuda.synchronize()
+    counts = launches()
+    ovf = adaptive.read_overflow(out)
+    print(f"[6] fwd+bwd, 1M trained scene, 512x512: overflow {json.dumps(ovf)}; "
+          f"launches (K1, K2, K3) {counts}")
+    check(counts == (1, 1, 1), "fwd+bwd launched K1, K2 and K3 once each")
+    check(all(ovf[k] == 0 for k in ("bin_overflow", "big_overflow", "cap_overflow",
+                                    "tile_overflow")), "fwd+bwd overflow counters all 0")
+    check(all(bool(torch.isfinite(x).all()) for x in g) and float(g[0].abs().max()) > 0,
+          "fwd+bwd gradients finite and nonzero")
+    ms = cuda_ms(fwd_bwd, reps=5)
+    return dict(ms=ms, rays_per_s=H * W / (ms / 1e3))
+
+
+def phase_train(check, dev, cams) -> dict:
+    """train_vanilla_3dgs at full width, then the step timed and traced."""
+    fields, alive = pad_fields(train_scene_fields(TRAIN_N, TRAIN_SEED), TRAIN_CAPACITY)
+    target_model = model_from_numpy(fields, alive, 0, device=dev)
+    targets = []
+    for cam in cams:
+        out, _ = adaptive.render_adaptive(render_model, TRAIN_CAPS, target_model, cam)
+        targets.append(torch.clamp(out["image"], 0.0, 1.0))
+    perturbed = dict(fields)
+    noise = np.random.default_rng(TRAIN_SEED + 1).normal(0, 0.5, fields["sh_dc"].shape)
+    perturbed["sh_dc"] = (fields["sh_dc"] + np.where(alive[:, None], noise, 0)).astype(np.float32)
+    model = model_from_numpy(perturbed, alive, 0, device=dev)
+    cfg = TrainConfig(
+        iterations=TRAIN_ITERS, sh_degree=0, capacity=TRAIN_CAPACITY,
+        dup_capacity_mult=4, k_max=TRAIN_CAPS.k_max,
+        # Densify after iteration 25 and reset after 30 (the last): the
+        # loss is read over the 25 iterations before either.
+        densify_from=20, densify_every=25, opacity_reset_every=TRAIN_ITERS, log_every=1,
+        optim=opt.OptimConfig(feature_lr=0.02),
+    )
+    logs: list[dict] = []
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train_vanilla_3dgs(cams, targets, None, None, 1.0, cfg, seed=0,
+                               log_fn=logs.append, model=model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_counts = counts = launches()
+    steps = [r for r in logs if "loss" in r]
+    dens_events = [r for r in logs if "n_split" in r]
+    resets = [r for r in logs if r.get("event") == "opacity_reset"]
+    grows = [r for r in logs if r.get("event") == "cap_grow"]
+    losses = [r["loss"] for r in steps]
+    print(f"[7] training: {TRAIN_ITERS} iterations, {TRAIN_N} Gaussians in {TRAIN_CAPACITY} "
+          f"slots, {wall:.2f} s wall; launches (K1, K2, K3) {counts}")
+    print(f"    losses: {', '.join(f'{x:.5f}' for x in losses)}")
+    for r in dens_events + resets + grows:
+        print(f"    {json.dumps(r)}")
+    ovf_steps = [r["iter"] for r in steps
+                 if any(r.get(k, 0) for k in ("bin_overflow", "big_overflow", "cap_overflow",
+                                              "tile_overflow"))]
+    print(f"    iterations with an overflow counter > 0: {ovf_steps}; n_alive at the end "
+          f"{int(state.model.alive.sum())}")
+    check(counts == (TRAIN_ITERS,) * 3,
+          "training: one K1 launch per render, one K2 and K3 launch per backward")
+    check(len(losses) == TRAIN_ITERS and all(math.isfinite(x) for x in losses),
+          "training: every loss finite")
+    first, late = statistics.mean(losses[:5]), statistics.mean(losses[20:25])
+    check(late < first, f"training: loss falls (iterations 1-5 mean {first:.5f}, "
+                        f"21-25 mean {late:.5f})")
+    check(len(dens_events) >= 1 and len(resets) >= 1, "training: densify and reset each ran")
+    check(all(bool(torch.isfinite(getattr(state.model.params, f)).all()) for f in PARAM_FIELDS)
+          and all(bool(torch.isfinite(getattr(state.adam.nu, f)).all()) for f in PARAM_FIELDS),
+          "training: params and Adam state finite")
+
+    # The train step alone, from the trained state: CUDA events per step.
+    lrs = opt.group_lrs(cfg.optim, spatial_lr_scale=1.0)
+    caps = TRAIN_CAPS
+    params, adam, stats = state.model.params, state.adam, state.stats
+    alive_t = state.model.alive
+    for _ in range(4):  # the trainer's growth rule, until a step drops nothing
+        step = make_train_step(cfg, lrs, 0, caps)
+        _, _, _, aux = step(params, alive_t, adam, stats, cams[0], targets[0], TRAIN_ITERS)
+        ovf = adaptive.read_overflow(aux)
+        if not adaptive.overflowed(ovf):
+            break
+        caps = caps.grown(ovf)
+    ms, auxes = [], []
+    reset_launches()
+    for i in range(TIMED_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, adam, stats, aux = step(params, alive_t, adam, stats, cams[i % len(cams)],
+                                        targets[i % len(cams)], TRAIN_ITERS + i)
+        e1.record()
+        ms.append((e0, e1))
+        auxes.append(aux)
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in ms]
+    timed_counts = launches()
+    ovf_any = [adaptive.read_overflow(a) for a in auxes]
+    zero = all(not adaptive.overflowed(o) and o.get("big_overflow", 0) == 0 for o in ovf_any)
+    check(zero, "timed train steps: overflow counters all 0")
+    check(timed_counts == (TIMED_STEPS,) * 3,
+          "timed train steps: one launch of each kernel per step")
+    wall_ms, busy_ms, ranked = profile_device(
+        lambda: step(params, alive_t, adam, stats, cams[0], targets[0], TRAIN_ITERS), top=None)
+    # index_add_ (and so autograd's index_select backward) runs an
+    # indexFunc kernel with ReduceAdd; scatter_add_ the scatter-gather
+    # kernel with ReduceAdd (a gather runs it with TensorAssign).
+    def is_fallback(name: str) -> bool:
+        return "ReduceAdd" in name and ("indexFunc" in name or "scatter_gather" in name)
+
+    fallbacks = [k for k, _, _ in ranked if is_fallback(k)]
+    print(f"    train step kernels: {len(ranked)} distinct, {sum(c for _, _, c in ranked)} launches; "
+          f"index_add_/scatter-add kernels: {fallbacks}")
+    check(not fallbacks, "train step ran no index_add_ or scatter-add kernel")
+    # Control: the test sees both kernels when they do run.
+    idx = torch.tensor([0, 2, 2], device=dev)
+    src = torch.ones((4, 3), device=dev)
+    _, _, ctl = profile_device(lambda: (torch.zeros((4, 5), device=dev).index_add_(1, idx, src),
+                                        torch.zeros(5, device=dev).scatter_add_(0, idx, src[0])),
+                               top=None)
+    ctl = [k for k, _, _ in ctl if is_fallback(k)]
+    print(f"    control, index_add_ + scatter_add_: {ctl}")
+    check(len(ctl) >= 2, "the fallback test finds index_add_ and scatter_add_ when they run")
+    top = ranked[:12]
+    return dict(step_ms=statistics.median(step_ms), step_ms_all=step_ms, caps=caps,
+                wall_ms=wall_ms, busy_ms=busy_ms, top=top, launches=train_counts)
 
 
 def main() -> int:
@@ -404,44 +857,38 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's bmm
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' bmm
     torch.backends.cudnn.allow_tf32 = False
-    failures: list[str] = []
-
-    def check(ok: bool, what: str) -> None:
-        print(f"  [{'ok' if ok else 'FAIL'}] {what}", flush=True)
-        if not ok:
-            failures.append(what)
+    check = Checks()
 
     card = card_line()
     print(f"[1] card: {card}")
     print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
+    phase_builds()
 
-    t0 = time.perf_counter()
-    log = native.build("tile_composite")
-    print(f"[2] kernel build: {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}")
-
-    # [3a] synthetic case.
+    # [3] synthetic cases: K1, K2, K3 against their plain versions.
     start, count, data, tiles_x, ch, max_chunks = synthetic_case(0)
-    s_t = torch.as_tensor(start, device=dev)
-    c_t = torch.as_tensor(count, device=dev)
-    d_t = torch.as_tensor(data, device=dev)
-    kern = tile_composite_cuda(s_t, c_t, d_t, tiles_x, ch, max_chunks)
+    syn = (torch.as_tensor(start, device=dev), torch.as_tensor(count, device=dev),
+           torch.as_tensor(data, device=dev), tiles_x, ch, max_chunks)
+    kern = tile_composite_cuda(*syn)
     torch.cuda.synchronize()
-    plain = tile_composite_plain(s_t, c_t, d_t, tiles_x, ch, max_chunks)
+    plain = tile_composite_plain(*syn)
     d = compare(kern, plain)
-    print(f"[3] kernel vs plain, synthetic case: {json.dumps(d)}")
-    print(f"    nch {kern.nch.tolist()}; kernel launches so far "
-          f"{tile_composite_cuda.launches}")
+    print(f"[3] K1 vs plain, synthetic case: {json.dumps(d)}")
+    print(f"    nch {kern.nch.tolist()}")
     check(compare_ok(d), "synthetic case agrees with the plain version")
     check(bool(torch.isfinite(kern.img).all()), "synthetic case image finite (NaN slots gated)")
     check(int(kern.nch[3]) < 3, "synthetic opaque tile exits early")
     check(int(kern.nch[2]) == 4, "synthetic 700-slot unaligned range walks 4 chunks")
     check(int(kern.nch[4]) == 4, "synthetic 1000-slot range is clipped to 768 slots")
+    g_img, g_t = composite_cotangents(len(start), ch, seed=10)
+    bg = torch.tensor([0.2, 0.5, 0.7], device=dev)
+    g_img = torch.as_tensor(g_img, device=dev)
+    gt_total = (torch.as_tensor(g_t, device=dev) + (g_img * bg).sum(-1)).contiguous()
+    check_k2(check, kern, syn, g_img, gt_total, "synthetic case")
+    for name, (ct, gid, n) in segsum_cases().items():
+        check_k3(check, torch.as_tensor(ct, device=dev), torch.as_tensor(gid, device=dev), n, name)
 
     # The slice's model: numpy -> the port's PLY -> load_ply on the card.
     os.makedirs(WORK, exist_ok=True)
@@ -453,7 +900,7 @@ def main() -> int:
         save_ply(host_model, ply_path)
         model = load_ply(ply_path, device="cuda")
         torch.cuda.synchronize()
-        print(f"[4] scene: {N_GAUSS} Gaussians, SH degree {model.sh_degree}, "
+        print(f"[3] scene: {N_GAUSS} Gaussians, SH degree {model.sh_degree}, "
               f"capacity {model.capacity}, PLY {os.path.getsize(ply_path) / 1e6:.1f} MB, "
               f"built+saved+loaded in {time.perf_counter() - t0:.2f} s")
         same = all(
@@ -466,7 +913,8 @@ def main() -> int:
 
     cams = ring_cameras(VIEWS, dev)
 
-    # [3b] full-width kernel inputs of view 0.
+    # [3] full-width inputs of view 0: K1, then K2 on K1's records, then
+    # K3 on view 0's real gids and K2's d_packed as the cotangent.
     settings = dataclasses.replace(rc.from_camera(cams[0], device=dev), sh_degree=SH_DEGREE)
     with torch.no_grad():
         prep = preprocess(
@@ -484,17 +932,30 @@ def main() -> int:
     d = compare(kern, plain)
     num_rendered = int(b["num_rendered"])
     max_tile_count = int(b["tile_count"].max())
-    print(f"[3] kernel vs plain, full width (view 0): {json.dumps(d)}; kernel launches "
-          f"so far {tile_composite_cuda.launches}")
+    print(f"[3] K1 vs plain, full width (view 0): {json.dumps(d)}")
     print(f"    view 0: num_rendered {num_rendered}, max_tile_count {max_tile_count}, "
           f"dup_data {tuple(dup_data.shape)}, entry_p depth {kern.entry_p.shape[1]}, "
           f"processed chunk-tiles {int(kern.nch.sum())}, deepest nch {int(kern.nch.max())}")
     check(compare_ok(d), "full-width case agrees with the plain version")
-    max_abs_err = max(d["img"], d["final_t"])
+    k1_err = max(d["img"], d["final_t"])
     nch_sorted = torch.sort(kern.nch.to(torch.float32)).values
     print(f"    nch per tile: mean {float(nch_sorted.mean()):.2f}, "
           f"p50 {float(nch_sorted[len(nch_sorted) // 2]):.0f}, "
           f"p99 {float(nch_sorted[int(0.99 * len(nch_sorted))]):.0f}, max {float(nch_sorted[-1]):.0f}")
+    num_tiles = b["tile_start"].shape[0]
+    g_img, g_t = composite_cotangents(num_tiles, 3, seed=11)
+    g_img = torch.as_tensor(g_img, device=dev)
+    gt_total = torch.as_tensor(g_t, device=dev).contiguous()
+    d_packed, bwd_args, k2_err = check_k2(check, kern, fw_args, g_img, gt_total, "full width")
+    gid = b["gid"]
+    n = N_GAUSS
+    gid_sorted, perm = torch.sort(gid, stable=True)
+    ct_sorted = d_packed[:6 + 3].index_select(1, perm).contiguous()
+    live = int((gid < n).sum())
+    k3_err = check_k3(check, ct_sorted, gid_sorted, n,
+                      f"full width (view 0 gids, {live} live slots)",
+                      tol_scale=float(ct_sorted.abs().max()))
+    unsorted = (d_packed[:6 + 3].contiguous(), torch.clamp(gid, max=n).to(torch.int64))
 
     # The JAX counts are of bench.py's raw arrays (activated opacity and
     # scales, flat colors); bin those the same way.
@@ -512,7 +973,7 @@ def main() -> int:
           "view 0 culled dup count and deepest tile equal the JAX package's on a CPU")
     del raw, prep_raw, b_raw
 
-    # [4] the slice: 8 views through render_adaptive + render_model.
+    # [4] serving: 8 views through render_adaptive + render_model.
     renders = 0
 
     def counted_render(*args, **kwargs):
@@ -520,7 +981,7 @@ def main() -> int:
         renders += 1
         return render_model(*args, **kwargs)
 
-    tile_composite_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     outs, view_caps = [], []
     for cam in cams:
@@ -529,10 +990,11 @@ def main() -> int:
         view_caps.append(caps)
     torch.cuda.synchronize()
     slice_s = time.perf_counter() - t0
-    launches = tile_composite_cuda.launches
-    print(f"[4] slice: {VIEWS} views, {renders} renders (incl. cap growth), "
-          f"{launches} kernel launches, {slice_s:.2f} s wall")
-    check(launches == renders and renders >= VIEWS, "one kernel launch per render")
+    serve_counts = launches()
+    print(f"[4] serving: {VIEWS} views, {renders} renders (incl. cap growth), launches "
+          f"(K1, K2, K3) {serve_counts}, {slice_s:.2f} s wall")
+    check(serve_counts == (renders, 0, 0) and renders >= VIEWS,
+          "one K1 launch per render, no backward")
     for i, (out, caps) in enumerate(zip(outs, view_caps)):
         ovf = adaptive.read_overflow(out)
         img, ft = out["image"], out["final_T"]
@@ -548,8 +1010,6 @@ def main() -> int:
         check(finite and tuple(img.shape) == (H, W, 3), f"view {i} image finite, {H}x{W}x3")
         check(0.03 < covered < 0.5 and float(img.min()) >= 0.0,
               f"view {i} blob covers part of the frame")
-
-    # PSNR of the kernel render against the plain render of view 0.
     bg = settings.bg
     plain_img = assemble_tiles(plain.img + plain.final_t[..., None] * bg, settings)
     kern_img = assemble_tiles(kern.img + kern.final_t[..., None] * bg, settings)
@@ -558,6 +1018,12 @@ def main() -> int:
     check(db >= MIN_PSNR_DB, f"kernel render within {MIN_PSNR_DB} dB PSNR of the plain render")
     check(bool(torch.equal(outs[0]["image"], kern_img)),
           "render_model's view 0 equals the kernel run on its inputs")
+    del outs
+
+    # [5] card against CPU; [6] fwd+bwd at full width; [7] training.
+    phase_card_vs_cpu(check, dev)
+    fb = phase_fwd_bwd(check, dev, rc.from_camera(cams[0], device=dev))
+    tr = phase_train(check, dev, cams)
 
     # Timing (CUDA events), card and power limit beside each number.
     view_ms = []
@@ -565,43 +1031,68 @@ def main() -> int:
         kw = dict(tile_cap=caps.tile_cap, dup_capacity=caps.dup_capacity,
                   k_max=caps.k_max, cap_a=caps.cap_a, big_cap=caps.big_cap)
         view_ms.append(cuda_ms(lambda: render_model(model, cam, **kw), reps=3))
-    kernel_ms = cuda_ms(lambda: tile_composite_cuda(*fw_args), reps=20, warmup=2)
-    plain_ms = cuda_ms(lambda: tile_composite_plain(*fw_args), reps=2)
-    bound = composite_bound(b["tile_start"], b["tile_count"], kern.nch, 3, fw_max_chunks)
-    print(f"[4] timing on {card}:")
+    k1_ms = cuda_ms(lambda: tile_composite_cuda(*fw_args), reps=20, warmup=2)
+    k1_plain_ms = cuda_ms(lambda: tile_composite_plain(*fw_args), reps=2)
+    k1_bound = composite_bound(b["tile_start"], b["tile_count"], kern.nch, 3, fw_max_chunks)
+    k2_ms = cuda_ms(lambda: tile_composite_bwd_cuda(*bwd_args), reps=10, warmup=2)
+    k2_plain_ms = cuda_ms(lambda: tile_composite_bwd_plain(*bwd_args), reps=2)
+    k2_bound = composite_bwd_bound(b["tile_start"], b["tile_count"], kern.nch, 3, fw_max_chunks,
+                                   dup_data.shape[1])
+    k3_ms = cuda_ms(lambda: segment_sum_cuda(ct_sorted, gid_sorted, n), reps=20, warmup=2)
+    k3_plain_ms = cuda_ms(lambda: segment_sum_plain(ct_sorted, gid_sorted, n), reps=5)
+    k3_lib_ms = cuda_ms(lambda: torch.zeros((9, n + 1), device=dev).index_add_(
+        1, unsorted[1], unsorted[0]), reps=5)
+    k3_bound = segsum_bound(9, int((gid_sorted < n).sum()), n)
+    print(f"[8] timing on {card}:")
     print(f"    render_model per view, median of {VIEWS} views: "
-          f"{statistics.median(view_ms):.3f} ms on {card} (views: "
-          f"{', '.join(f'{v:.3f}' for v in view_ms)})")
-    print(f"    tile_composite kernel, view 0: {kernel_ms:.4f} ms on {card}; plain version "
-          f"{plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
-          f"({bound['bytes']} bytes, {bound['ops']} fp32 ops, "
-          f"{bound['slot_evals']} alpha evaluations)")
+          f"{statistics.median(view_ms):.3f} ms (views: {', '.join(f'{v:.3f}' for v in view_ms)})")
+    for name, ms, pms, bd, extra in (
+        ("K1 tile_composite", k1_ms, k1_plain_ms, k1_bound, ""),
+        ("K2 tile_composite_bwd", k2_ms, k2_plain_ms, k2_bound, ""),
+        ("K3 segment_sum", k3_ms, k3_plain_ms, k3_bound, f"; index_add_ (unsorted) {k3_lib_ms:.4f} ms"),
+    ):
+        print(f"    {name}, view 0: {ms:.4f} ms; plain version {pms:.3f} ms; bound "
+              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['bytes']} bytes"
+              + (f", {bd['ops']} fp32 ops, {bd['slot_evals']} alpha evaluations" if "ops" in bd
+                 else "") + f"){extra}")
+    print(f"    fwd+bwd, 1M trained scene, 512x512: {fb['ms']:.3f} ms "
+          f"({fb['rays_per_s']:.0f} rays/s), mean of 5")
+    print(f"    train step, 2^18 scene, 512x512: median {tr['step_ms']:.3f} ms of {TIMED_STEPS} "
+          f"({', '.join(f'{v:.3f}' for v in tr['step_ms_all'])}); caps {tr['caps']}")
+    print(f"    train step under torch.profiler: wall {tr['wall_ms']:.3f} ms, device busy "
+          f"{tr['busy_ms']:.3f} ms, idle share {1.0 - tr['busy_ms'] / tr['wall_ms']:.3f} "
+          f"(against the unprofiled median step, {1.0 - tr['busy_ms'] / tr['step_ms']:.3f})")
+    for name, ms, calls in tr["top"]:
+        print(f"      {ms:8.3f} ms  {calls:3d}x  {name[:100]}")
     kw0 = dict(tile_cap=view_caps[0].tile_cap, dup_capacity=view_caps[0].dup_capacity,
                k_max=view_caps[0].k_max, cap_a=view_caps[0].cap_a, big_cap=view_caps[0].big_cap)
     stages = stage_times(model, cams[0], kw0)
     print("    view 0 stages (host clock, synchronized, median of 5): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
-    wall_ms, busy_ms, top = profile_device(lambda: render_model(model, cams[0], **kw0))
+    wall_ms, busy_ms, _ = profile_device(lambda: render_model(model, cams[0], **kw0))
     print(f"    view 0 under torch.profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1.0 - busy_ms / wall_ms:.3f}")
-    for name, ms, calls in top:
-        print(f"      {ms:8.3f} ms  {calls:3d}x  {name[:100]}")
 
-    kernels = [dict(
-        name="tile_composite_fwd",
-        route="cuda",
-        source="sugar_tpu_torch/csrc/tile_composite.cu",
-        replaces="sugar_tpu/raster/pallas_composite.py:185",
-        launches=launches,
-        max_abs_err=max_abs_err,
-        ms=kernel_ms,
-        plain_ms=plain_ms,
-        bound_ms=bound["bound_ms"],
-        bound_by=bound["bound_by"],
-        library_ms=None,
-    )]
-    if failures:
-        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+    k1n, k2n, k3n = tr["launches"]
+    kernels = [
+        dict(name="tile_composite_fwd", route="cuda",
+             source="sugar_tpu_torch/csrc/tile_composite.cu",
+             replaces="sugar_tpu/raster/pallas_composite.py:185", launches=k1n,
+             max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound["bound_ms"],
+             bound_by=k1_bound["bound_by"], library_ms=None),
+        dict(name="tile_composite_bwd", route="cuda",
+             source="sugar_tpu_torch/csrc/tile_composite_bwd.cu",
+             replaces="sugar_tpu/raster/pallas_composite.py:273", launches=k2n,
+             max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound["bound_ms"],
+             bound_by=k2_bound["bound_by"], library_ms=None),
+        dict(name="segment_sum", route="cuda", source="sugar_tpu_torch/csrc/segsum.cu",
+             replaces="sugar_tpu/raster/segsum.py:47", launches=k3n,
+             max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound["bound_ms"],
+             bound_by=k3_bound["bound_by"], library_ms=k3_lib_ms),
+    ]
+    if check.failures:
+        print(f"chip_smoke: {len(check.failures)} check(s) failed: {check.failures}",
+              file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}))
     print(card)

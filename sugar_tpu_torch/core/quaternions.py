@@ -12,7 +12,9 @@ import torch
 
 def normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Normalize quaternions to unit norm."""
-    return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=eps)
+    norm = torch.linalg.norm(q, dim=-1, keepdim=True)
+    # maximum, not clamp: a tie splits the gradient as jnp.maximum does.
+    return q / torch.maximum(norm, torch.tensor(eps, dtype=norm.dtype, device=norm.device))
 
 
 def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:

@@ -83,7 +83,9 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 def sh_to_rgb(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """SH -> clamped RGB as the rasterizer does: max(eval + 0.5, 0)."""
-    return torch.clamp(eval_sh(deg, sh, dirs) + 0.5, min=0.0)
+    v = eval_sh(deg, sh, dirs) + 0.5
+    # maximum, not clamp: a tie at 0 splits the gradient as jnp.maximum does.
+    return torch.maximum(v, torch.zeros((), dtype=v.dtype, device=v.device))
 
 
 def rgb_to_sh0(rgb):

@@ -54,13 +54,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int kChunk = 256;  // slots per chunk = pixels per tile
-constexpr int kTile = 16;
-constexpr float kAlphaClamp = 0.99f;
-constexpr float kAlphaCutoff = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
+using sugar::kChunk;
+using sugar::kTEps;
+using sugar::kTile;
 
 template <int CH>
 __global__ void __launch_bounds__(kChunk) tile_composite_fwd_kernel(
@@ -109,14 +109,9 @@ __global__ void __launch_bounds__(kChunk) tile_composite_fwd_kernel(
     const int j_lo = lo > 0 ? static_cast<int>(lo) : 0;
     const int j_hi = hi < kChunk ? static_cast<int>(hi) : kChunk;
     for (int j = j_lo; j < j_hi; ++j) {
-      const float dx = s[0][j] - px;
-      const float dy = s[1][j] - py;
-      const float power =
-          -0.5f * (s[2][j] * dx * dx + s[4][j] * dy * dy) - s[3][j] * dx * dy;
-      const bool pw_ok = power <= 0.f;  // false for NaN
-      const float raw = s[5][j] * expf(pw_ok ? power : 0.f);
-      float alpha = raw > kAlphaClamp ? kAlphaClamp : raw;  // keeps NaN
-      alpha = (pw_ok && alpha >= kAlphaCutoff) ? alpha : 0.f;
+      float dx, dy, e;
+      const float alpha = sugar::slot_alpha(s[0][j], s[1][j], s[2][j], s[3][j], s[4][j],
+                                            s[5][j], px, py, dx, dy, e);
       const float pn = pc * (1.f - alpha);
       if (pn >= kTEps) {
         if (alpha > 0.f) {

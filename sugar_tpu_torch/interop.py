@@ -2,7 +2,9 @@
 
 The JAX package's ``GaussianParams`` fields, as numpy arrays (for example
 ``{f: np.asarray(getattr(params, f)) for f in PARAM_FIELDS}``), become the
-port's tensors; nothing is converted in value. The PLY format is the other
+port's tensors; nothing is converted in value. Its optimizer state
+(``AdamState``: mu, nu, count) and densify statistics (``DensifyStats``)
+cross the same way, so a training run can move between the packages. The PLY format is the other
 route (``models.gaussians.load_ply`` reads files the JAX package wrote).
 """
 
@@ -13,7 +15,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from sugar_tpu_torch.models.densifier import DensifyStats
 from sugar_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianModel, GaussianParams
+from sugar_tpu_torch.trainers.optimizer import AdamState
 
 
 def params_from_numpy(
@@ -44,3 +48,29 @@ def model_from_numpy(
         torch.as_tensor(np.asarray(alive, dtype=bool), device=device),
         int(sh_degree),
     )
+
+
+def adam_from_numpy(
+    mu: Mapping[str, np.ndarray],
+    nu: Mapping[str, np.ndarray],
+    count: int,
+    device: str | torch.device = "cuda",
+) -> AdamState:
+    """AdamState from the first and second moments (dicts of the six
+    fields) and the global step count."""
+    return AdamState(
+        mu=params_from_numpy(mu, device),
+        nu=params_from_numpy(nu, device),
+        count=torch.tensor(int(count), dtype=torch.int32, device=device),
+    )
+
+
+def stats_from_numpy(
+    grad_accum: np.ndarray,
+    denom: np.ndarray,
+    max_radii: np.ndarray,
+    device: str | torch.device = "cuda",
+) -> DensifyStats:
+    """DensifyStats from its three (N,) float32 arrays."""
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32), device=device)  # noqa: E731
+    return DensifyStats(grad_accum=t(grad_accum), denom=t(denom), max_radii=t(max_radii))

@@ -78,6 +78,62 @@ class GaussianModel:
         return torch.cat([self.params.sh_dc[:, :, None], self.params.sh_rest], dim=-1)
 
 
+def mean_sq_dist_3nn(points: np.ndarray) -> np.ndarray:
+    """Mean squared distance to the 3 nearest neighbors (simple-knn
+    ``distCUDA2`` semantics, spatial.cu:15-27). Host-side init helper."""
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(points)
+    d, _ = tree.query(points, k=4)  # includes self at d[:,0]=0
+    return np.mean(d[:, 1:4] ** 2, axis=1)
+
+
+def create_from_pcd(
+    points: np.ndarray,
+    colors: np.ndarray,
+    capacity: int,
+    sh_degree: int = 3,
+    initial_opacity: float = 0.1,
+    device: str | torch.device = "cuda",
+) -> GaussianModel:
+    """Initialize from a COLMAP/random point cloud, on ``device``.
+
+    Reference semantics (gaussian_model.py:124-147): SH-DC from RGB2SH,
+    isotropic log-scale = log(sqrt(mean 3-NN sq dist)) clamped at 1e-7,
+    identity rotations, opacity logit = inverse_sigmoid(0.1). Padding
+    slots get the fill values of ``load_ply`` and are not alive.
+    """
+    n = points.shape[0]
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < point count {n}")
+    k = sh_lib.num_sh_coeffs(sh_degree)
+
+    dist2 = np.maximum(mean_sq_dist_3nn(points), 1e-7)
+    log_s = np.log(np.sqrt(dist2))[:, None].repeat(3, axis=1)
+
+    def pad(x, fill=0.0):
+        shape = (capacity - n,) + x.shape[1:]
+        return np.concatenate([x, np.full(shape, fill, x.dtype)], axis=0)
+
+    # x / (1 - x) in double, the log in float32: the JAX package's order.
+    ratio = initial_opacity / (1.0 - initial_opacity)
+    logit = float(torch.log(torch.tensor(ratio, dtype=torch.float32)))
+    quats = pad(np.tile(np.array([1, 0, 0, 0], np.float32), (n, 1)))
+    quats[n:, 0] = 1.0
+    alive = np.zeros(capacity, bool)
+    alive[:n] = True
+    arrays = dict(
+        xyz=pad(points.astype(np.float32)),
+        sh_dc=pad(np.asarray(sh_lib.rgb_to_sh0(colors)).astype(np.float32)),
+        sh_rest=pad(np.zeros((n, 3, k - 1), np.float32)),
+        opacity_logit=pad(np.full(n, logit, np.float32), fill=-10.0),
+        log_scales=pad(log_s.astype(np.float32), fill=-10.0),
+        quaternions=quats,
+    )
+    params = GaussianParams(**{f: torch.as_tensor(v, device=device) for f, v in arrays.items()})
+    return GaussianModel(params, torch.as_tensor(alive, device=device), sh_degree)
+
+
 def save_ply(model: GaussianModel, path: str) -> None:
     """Write alive Gaussians in the canonical 3DGS PLY format."""
     alive = model.alive.cpu().numpy()

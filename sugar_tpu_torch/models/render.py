@@ -2,8 +2,9 @@
 
 Port of ``sugar_tpu/models/render.py``: builds raster settings from the
 camera, applies the activations and renders through
-``raster.api.rasterize_gaussians`` on the model's device. Forward only in
-this slice.
+``raster.api.rasterize_gaussians`` on the model's device. ``render_params``
+is the training path's entry: differentiable in the raw params through
+sigmoid, exp and the quaternion normalization.
 """
 
 from __future__ import annotations
@@ -74,7 +75,8 @@ def render_params(
     cap_a: int = 4,
     big_cap: int | None = None,
 ) -> dict:
-    """Render from raw params (the training path's entry point)."""
+    """Render from raw params (the training path's entry point); the image
+    is differentiable in every field of ``params`` and in ``ndc_offset``."""
     settings = dataclasses.replace(
         rc.from_camera(camera, bg=bg, device=params.xyz.device), sh_degree=active_sh_degree
     )

@@ -11,9 +11,12 @@ tensors, its plain version on CPU tensors) and ``"auto"`` resolves to it
 on every device. The oracle modes ``"reference"``, ``"tiled"`` and
 ``"pallas_twopass"`` are not ported yet (ROADMAP.md, queue 1).
 
-Rendering is forward only in this slice: the call runs under
-``torch.no_grad()``. Preprocess and binning are plain torch ops, ready for
-the autograd functions of the training slice.
+The render is differentiable with respect to means3d, scales,
+quaternions, cov3d, opacities, colors or shs, and the ``ndc_offset``
+screen-space probe, whose gradient feeds densification (as
+viewspace_points.grad does in the reference). On CUDA tensors the backward
+runs the compositing-backward kernel (K2) and the gradient segment-sum
+kernel (K3).
 """
 
 from __future__ import annotations
@@ -45,7 +48,6 @@ def resolve_mode(mode: str) -> str:
     return mode
 
 
-@torch.no_grad()
 def rasterize_gaussians(
     means3d: torch.Tensor,
     opacities: torch.Tensor,

@@ -68,6 +68,14 @@ class RasterSettings:
         return (self.image_height + TILE_Y - 1) // TILE_Y
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)`` with its gradient: maximum then minimum,
+    which split the gradient 0.5/0.5 at a tie (a background pixel is
+    exactly 0) where ``torch.clamp`` passes all of it."""
+    lo_t = torch.tensor(lo, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), lo_t.new_tensor(hi))
+
+
 def from_camera(camera, bg: torch.Tensor | None = None, device=None) -> RasterSettings:
     """Build RasterSettings from a core.cameras.Camera, on ``device``
     (default: the camera's)."""

@@ -195,7 +195,7 @@ def expand_support_culled(
     )
 
 
-@torch.no_grad()
+@torch.no_grad()  # the stop_gradient(prep) of the JAX package's render_fused
 def bin_fused(
     prep: Preprocessed,
     num_tiles: int,
@@ -298,15 +298,18 @@ def bin_and_gather(
 ) -> tuple[dict, torch.Tensor]:
     """Binning plus the dup gather: (bin_fused's dict, dup_data (ROWS,
     D_pad)), the compositing kernel's inputs. ``big_cap`` None means
-    ``default_big_cap(n)``.
+    ``default_big_cap(n)``. dup_data carries the gradient to ``prep``
+    (the gather's segment-sum backward; zeros when the capacity truncated
+    real slots, ``inexact`` > 0).
     """
     n = prep.mean2d.shape[0]
     if big_cap is None:
         big_cap = default_big_cap(n)
     num_tiles = settings.tiles_x * settings.tiles_y
     b = bin_fused(prep, num_tiles, settings.tiles_x, tile_cap, cap_a, big_cap, capacity)
+    live_rows = 6 + prep.color.shape[-1]
     packed = pad_rows(pack_params(prep.mean2d, prep.conic, prep.opacity, prep.color))
-    return b, gather_dup(packed, b["gid"], n)
+    return b, gather_dup(packed, b["gid"], n, b["inexact"] == 0, live_rows)
 
 
 def assemble_tiles(x: torch.Tensor, settings: rc.RasterSettings) -> torch.Tensor:
@@ -330,8 +333,10 @@ def render_fused(
 
     Overflow of ``big_cap`` (see ``bin_and_gather``) is reported in
     ``big_overflow`` and ``bin_overflow`` and handled by
-    ``raster.adaptive`` like every other capacity. Forward only in this
-    slice.
+    ``raster.adaptive`` like every other capacity. Differentiable in
+    ``prep``'s mean2d, conic, opacity and color (and ``settings.bg``);
+    binning carries no gradient, as the JAX package's
+    ``stop_gradient(prep)``.
     """
     ch = prep.color.shape[-1]
     max_chunks = max(1, (max_per_tile + C_CHUNK - 1) // C_CHUNK)

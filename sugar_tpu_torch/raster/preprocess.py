@@ -3,7 +3,10 @@
 Port of ``sugar_tpu/raster/preprocess.py`` (itself a vectorized recast of
 the CUDA ``preprocessCUDA`` kernel, forward.cu:160-258). Plain torch ops on
 the (N, ...) parameter tensors, differentiable end to end; the covariance
-math stays in structure-of-arrays channels, as in the JAX package.
+math stays in structure-of-arrays channels, as in the JAX package. Where
+the JAX package takes ``jnp.maximum``/``jnp.clip`` on a differentiable
+value, the port takes ``torch.maximum``/``torch.minimum`` with tensor
+operands, which share a tie's gradient as JAX does.
 
 Dead/culled Gaussians are signalled by ``tiles_touched == 0`` rather than
 by compaction, keeping shapes fixed.
@@ -87,8 +90,8 @@ def compute_cov2d(
     tz = torch.where(t[..., 2] > rc.Z_CULL, t[..., 2], 1.0)
     limx = rc.FOV_CLAMP * tanfovx
     limy = rc.FOV_CLAMP * tanfovy
-    tx = torch.clamp(t[..., 0] / tz, -limx, limx) * tz
-    ty = torch.clamp(t[..., 1] / tz, -limy, limy) * tz
+    tx = rc.clip(t[..., 0] / tz, -limx, limx) * tz
+    ty = rc.clip(t[..., 1] / tz, -limy, limy) * tz
 
     inv_z = 1.0 / tz
     inv_z2 = inv_z * inv_z
@@ -120,6 +123,10 @@ def compute_cov2d(
     cyy = quad(m1, m1) + rc.LOWPASS
     cxy = quad(m0, m1)
     return torch.stack([cxx, cxy, cyy], dim=-1)
+
+
+def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
 def _tile_index(x: torch.Tensor, hi: int) -> torch.Tensor:
@@ -159,7 +166,7 @@ def preprocess(
         cov3d = _cov3d_channels(scales, quaternions, settings.scale_modifier)
     if colors is None:
         dirs = means3d - settings.campos
-        dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
+        dirs = dirs / torch.maximum(torch.linalg.norm(dirs, dim=-1, keepdim=True), _f32(1e-12, dirs))
         colors = sh_lib.sh_to_rgb(settings.sh_degree, shs, dirs)
 
     # Projection (forward.cu:197-200).
@@ -200,9 +207,9 @@ def preprocess(
 
     # Radius from eigenvalues (forward.cu:227-232).
     mid = 0.5 * (cxx + cyy)
-    disc = torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    disc = torch.sqrt(torch.maximum(mid * mid - det, _f32(0.1, det)))
     lam_max = mid + disc
-    radius_f = torch.ceil(rc.RADIUS_SIGMA * torch.sqrt(torch.clamp(lam_max, min=0.0)))
+    radius_f = torch.ceil(rc.RADIUS_SIGMA * torch.sqrt(torch.maximum(lam_max, _f32(0.0, det))))
 
     # Tile rect (auxiliary.h:46-56); the int cast truncates toward zero.
     gx, gy = settings.tiles_x, settings.tiles_y

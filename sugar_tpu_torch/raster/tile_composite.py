@@ -1,12 +1,13 @@
 """Per-tile alpha compositing: the CUDA kernel, its plain version, dispatch.
 
-Port of the forward of ``sugar_tpu/raster/pallas_composite.py``
-(``tile_composite`` / ``_tile_composite_fwd`` over the Pallas kernel
-``_fwd_kernel``). On CUDA tensors ``tile_composite`` launches the
-hand-written Hopper kernel ``csrc/tile_composite.cu``; on CPU tensors it
-runs ``tile_composite_plain``, which follows the Pallas kernel's math chunk
-by chunk. For a CUDA tensor there is no fallback: the kernel is built and
-launched, or the call raises.
+Port of ``sugar_tpu/raster/pallas_composite.py`` (``tile_composite`` and
+its custom VJP over the Pallas kernels ``_fwd_kernel`` and
+``_bwd_kernel``). On CUDA tensors ``tile_composite`` launches the
+hand-written Hopper kernels ``csrc/tile_composite.cu`` (forward, K1) and
+``csrc/tile_composite_bwd.cu`` (backward, K2); on CPU tensors it runs
+``tile_composite_plain`` and ``tile_composite_bwd_plain``, which follow
+the Pallas kernels' math chunk by chunk. For a CUDA tensor there is no
+fallback: the kernel is built and launched, or the call raises.
 
 Both versions return the same five arrays with the TPU kernel's meanings
 (see the kernel source): the image without background, final_T,
@@ -62,9 +63,9 @@ def _tile_ranges(tile_start, tile_count, max_chunks):
 
 
 def _chunk_alpha(data, px, py, slots, start, end):
-    """Gated alpha (L, P, C) of one chunk per tile (``_chunk_alpha`` of the
-    Pallas kernel). data (6+CH, L, C); px, py (L, P); slots (L, C) global
-    slot indices; start, end (L,)."""
+    """(gated alpha, exp(gated power), dx, dy), each (L, P, C), of one
+    chunk per tile (``_chunk_alpha`` of the Pallas kernel). data (6+CH, L,
+    C); px, py (L, P); slots (L, C) global slot indices; start, end (L,)."""
     dx = data[R_MX][:, None, :] - px[:, :, None]
     dy = data[R_MY][:, None, :] - py[:, :, None]
     a = data[R_CA][:, None, :]
@@ -77,7 +78,22 @@ def _chunk_alpha(data, px, py, slots, start, end):
     alpha = torch.clamp(raw, max=rc.ALPHA_CLAMP)
     in_range = (slots >= start[:, None]) & (slots < end[:, None])
     keep = (power <= 0.0) & (alpha >= rc.ALPHA_CUTOFF) & in_range[:, None, :]
-    return torch.where(keep, alpha, 0.0)
+    return torch.where(keep, alpha, 0.0), e, dx, dy
+
+
+def _chunk_data(data_rows, idx, c, c0, tiles_x):
+    """Chunk c of each tile in ``idx`` (L,): global slot indices (L, C),
+    the packed rows (R, L, C) (zero past the array's end) and the pixel
+    coordinates px, py (L, P) as float32."""
+    dev = data_rows.device
+    d_pad = data_rows.shape[1]
+    slots = ((c0[idx] + c) * C_CHUNK)[:, None] + torch.arange(C_CHUNK, device=dev)
+    data = data_rows[:, torch.clamp(slots, max=d_pad - 1)]
+    data = torch.where(slots < d_pad, data, 0.0)
+    pix = torch.arange(P_TILE, device=dev)
+    px = ((idx % tiles_x) * rc.TILE_X)[:, None] + pix % rc.TILE_X
+    py = (torch.div(idx, tiles_x, rounding_mode="floor") * rc.TILE_Y)[:, None] + pix // rc.TILE_X
+    return slots, data, px.to(torch.float32), py.to(torch.float32)
 
 
 def tile_composite_plain(
@@ -97,7 +113,6 @@ def tile_composite_plain(
     """
     dev = dup_data.device
     num_tiles = tile_start.shape[0]
-    d_pad = dup_data.shape[1]
     data_rows = dup_data[: R_COL + ch]
     start, end, c0, n_chunks = _tile_ranges(tile_start, tile_count, max_chunks)
 
@@ -110,8 +125,6 @@ def tile_composite_plain(
     nch = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
     p_carry = torch.ones((num_tiles, P_TILE), dtype=torch.float32, device=dev)
 
-    lane = torch.arange(C_CHUNK, device=dev)
-    pix = torch.arange(P_TILE, device=dev)
     max_n = int(n_chunks.max()) if num_tiles else 0
     for c in range(max_n):
         # A tile leaves the walk for good at its first chunk entry where no
@@ -122,16 +135,8 @@ def tile_composite_plain(
             break
         for b0 in range(0, live_idx.numel(), _TILE_BATCH):
             idx = live_idx[b0 : b0 + _TILE_BATCH]
-            slots = ((c0[idx] + c) * C_CHUNK)[:, None] + lane  # (L, C)
-            data = data_rows[:, torch.clamp(slots, max=d_pad - 1)]  # (R, L, C)
-            data = torch.where(slots < d_pad, data, 0.0)
-            px = ((idx % tiles_x) * rc.TILE_X)[:, None] + pix % rc.TILE_X
-            py = (torch.div(idx, tiles_x, rounding_mode="floor") * rc.TILE_Y)[:, None] + (
-                pix // rc.TILE_X
-            )
-            alpha = _chunk_alpha(
-                data, px.to(torch.float32), py.to(torch.float32), slots, start[idx], end[idx]
-            )
+            slots, data, px, py = _chunk_data(data_rows, idx, c, c0, tiles_x)
+            alpha, _, _, _ = _chunk_alpha(data, px, py, slots, start[idx], end[idx])
             pc = p_carry[idx]  # (L, P)
             entry_p[idx, c] = pc
             uprod = torch.cumprod(1.0 - alpha, dim=2)  # (L, P, C) inclusive
@@ -149,6 +154,81 @@ def tile_composite_plain(
             n_contrib[idx] += (a_eff > 0).sum(dim=2, dtype=torch.int32)
             nch[idx] += 1
     return CompositeOut(img, final_t, n_contrib, entry_p, nch)
+
+
+def tile_composite_bwd_plain(
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    nch: torch.Tensor,
+    dup_data: torch.Tensor,
+    g_img: torch.Tensor,
+    gt_total: torch.Tensor,
+    t_fin: torch.Tensor,
+    entry_p: torch.Tensor,
+    tiles_x: int,
+    ch: int,
+    max_chunks: int,
+) -> torch.Tensor:
+    """The compositing backward's plain PyTorch version, on any device:
+    d_packed (ROWS, D_pad), the gradient of each dup slot's packed rows.
+
+    Follows the Pallas backward (``pallas_composite.py:307-399``) chunk by
+    chunk in reverse over the ``nch`` chunks the forward processed: the
+    chunk's include prefix and t_in from its ``entry_p`` row, the suffix
+    ``total - inclusive cumsum`` of w (c . g) plus the carry from later
+    chunks (starting at T_fin * gt_total), and dL/dalpha = t_in (c . g) -
+    suffix / max(1 - alpha, 0.01) on included slots. Gated terms are
+    where()-selected, so NaN on a dropped slot gives 0. Slots outside
+    every processed tile range stay 0.
+    """
+    d_pad = dup_data.shape[1]
+    data_rows = dup_data[: R_COL + ch]
+    start, end, c0, _ = _tile_ranges(tile_start, tile_count, max_chunks)
+    d_packed = torch.zeros_like(dup_data)
+    d_live = d_packed[: R_COL + ch]
+    carry = t_fin * gt_total  # (T, P) suffix carried from later chunks
+    nch = nch.to(torch.int64)
+    max_n = int(nch.max()) if nch.numel() else 0
+    for c in range(max_n - 1, -1, -1):
+        live_idx = torch.nonzero(nch > c).flatten()
+        for b0 in range(0, live_idx.numel(), _TILE_BATCH):
+            idx = live_idx[b0 : b0 + _TILE_BATCH]
+            slots, data, px, py = _chunk_data(data_rows, idx, c, c0, tiles_x)
+            alpha, e, dx, dy = _chunk_alpha(data, px, py, slots, start[idx], end[idx])
+            base_p = entry_p[idx, c][:, :, None]  # (L, P, 1)
+            uprod = torch.cumprod(1.0 - alpha, dim=2)
+            a_eff = torch.where(base_p * uprod >= rc.T_EPS, alpha, 0.0)
+            excl = torch.cat([torch.ones_like(uprod[:, :, :1]), uprod[:, :, :-1]], dim=2)
+            t_in = base_p * excl
+            w = a_eff * t_in
+            g = g_img[idx]  # (L, P, CH)
+            cdotg = torch.bmm(g, data[R_COL : R_COL + ch].permute(1, 0, 2))  # (L, P, C)
+            wc = w * cdotg
+            total = wc.sum(dim=2, keepdim=True)
+            suffix = (total - torch.cumsum(wc, dim=2)) + carry[idx][:, :, None]
+            act = a_eff > 0.0
+            one_m_a = torch.clamp(1.0 - a_eff, min=1.0 - rc.ALPHA_CLAMP)
+            dalpha = torch.where(act, t_in * cdotg - suffix / one_m_a, 0.0)
+            dpower = dalpha * data[R_OP][:, None, :] * e
+            ca, cb, cc = (data[r][:, None, :] for r in (R_CA, R_CB, R_CC))
+            terms = [
+                dpower * -(ca * dx + cb * dy),
+                dpower * -(cc * dy + cb * dx),
+                dpower * (-0.5 * dx * dx),
+                dpower * -(dx * dy),
+                dpower * (-0.5 * dy * dy),
+                dalpha * e,
+            ]
+            rows = [torch.where(act, x, 0.0).sum(dim=1) for x in terms]  # (L, C) each
+            d_col = torch.bmm(g.transpose(1, 2), w)  # (L, CH, C)
+            contrib = torch.cat([torch.stack(rows), d_col.permute(1, 0, 2)], dim=0)
+            owned = (slots >= start[idx][:, None]) & (slots < end[idx][:, None]) & (slots < d_pad)
+            contrib = torch.where(owned, contrib, 0.0)
+            d_live.index_add_(
+                1, torch.clamp(slots, max=d_pad - 1).reshape(-1), contrib.reshape(R_COL + ch, -1)
+            )
+            carry[idx] += total[:, :, 0]
+    return d_packed
 
 
 def _kernel_lib():
@@ -227,6 +307,110 @@ def tile_composite_cuda(
 tile_composite_cuda.launches = 0
 
 
+def _bwd_fn():
+    fn = native.load("tile_composite_bwd").sugar_tile_composite_bwd
+    if fn.argtypes is None:
+        vp = ctypes.c_void_p
+        fn.argtypes = [
+            vp, vp, vp, vp, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            vp, vp, vp, vp, vp, vp,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def tile_composite_bwd_cuda(
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    nch: torch.Tensor,
+    dup_data: torch.Tensor,
+    g_img: torch.Tensor,
+    gt_total: torch.Tensor,
+    t_fin: torch.Tensor,
+    entry_p: torch.Tensor,
+    tiles_x: int,
+    ch: int,
+    max_chunks: int,
+) -> torch.Tensor:
+    """Launch the Hopper compositing-backward kernel on the current stream;
+    returns d_packed (ROWS, D_pad). Raises on inputs the kernel does not
+    take and when the launch fails. ``tile_composite_bwd_cuda.launches``
+    counts successful launches."""
+    _check_inputs(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
+    num_tiles = tile_start.shape[0]
+    expect = {
+        "nch": (nch, (num_tiles,), torch.int32),
+        "g_img": (g_img, (num_tiles, P_TILE, ch), torch.float32),
+        "gt_total": (gt_total, (num_tiles, P_TILE), torch.float32),
+        "t_fin": (t_fin, (num_tiles, P_TILE), torch.float32),
+    }
+    for name, (x, shape, dtype) in expect.items():
+        if x.device != dup_data.device or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape} on {dup_data.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    rec = entry_p.shape[1] if entry_p.dim() == 3 else 0
+    if (entry_p.device != dup_data.device or entry_p.dtype != torch.float32
+            or tuple(entry_p.shape) != (num_tiles, rec, P_TILE) or rec < max_chunks + 1
+            or not entry_p.is_contiguous()):
+        raise ValueError("entry_p must be a contiguous float32 (T, >= max_chunks+1, 256) tensor")
+    fn = _bwd_fn()
+    d_packed = torch.zeros_like(dup_data)
+    dev = dup_data.device
+    with torch.cuda.device(dev):
+        err = fn(
+            tile_start.data_ptr(), tile_count.data_ptr(), nch.data_ptr(), dup_data.data_ptr(),
+            dup_data.shape[1], num_tiles, tiles_x, ch, max_chunks, rec,
+            g_img.data_ptr(), gt_total.data_ptr(), t_fin.data_ptr(), entry_p.data_ptr(),
+            d_packed.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"tile_composite_bwd kernel launch failed: CUDA error {err}")
+    tile_composite_bwd_cuda.launches += 1
+    return d_packed
+
+
+tile_composite_bwd_cuda.launches = 0
+
+
+class TileComposite(torch.autograd.Function):
+    """The custom VJP of ``pallas_composite.tile_composite``: forward K1 (or
+    its plain version), backward K2 (or its plain version), on the device
+    of ``dup_data``. d_bg and the background's share of the final_T
+    cotangent are sums outside the kernel, as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, tile_start, tile_count, dup_data, bg, tiles_x, ch, max_chunks):
+        if dup_data.is_cuda:
+            out = tile_composite_cuda(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
+        elif dup_data.device.type == "cpu":
+            out = tile_composite_plain(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
+        else:
+            raise ValueError(f"no compositing path for device {dup_data.device}")
+        image = out.img + out.final_t[:, :, None] * bg[None, None, :]
+        ctx.save_for_backward(tile_start, tile_count, dup_data, bg, out.final_t, out.entry_p,
+                              out.nch)
+        ctx.shape = (tiles_x, ch, max_chunks)
+        ctx.mark_non_differentiable(out.n_contrib)
+        return image, out.final_t, out.n_contrib
+
+    @staticmethod
+    def backward(ctx, g_img, g_t, _g_n):
+        tile_start, tile_count, dup_data, bg, t_fin, entry_p, nch = ctx.saved_tensors
+        tiles_x, ch, max_chunks = ctx.shape
+        g_img = g_img.contiguous()  # unused outputs' grads arrive as zeros
+        gt_total = (g_t + (g_img * bg).sum(dim=-1)).contiguous()
+        d_bg = (t_fin[:, :, None] * g_img).sum(dim=(0, 1))
+        args = (tile_start, tile_count, nch, dup_data, g_img, gt_total, t_fin, entry_p,
+                tiles_x, ch, max_chunks)
+        if dup_data.is_cuda:
+            d_packed = tile_composite_bwd_cuda(*args)
+        else:
+            d_packed = tile_composite_bwd_plain(*args)
+        return None, None, d_packed, d_bg, None, None, None
+
+
 def tile_composite(
     tile_start: torch.Tensor,
     tile_count: torch.Tensor,
@@ -237,18 +421,12 @@ def tile_composite(
     max_chunks: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Composite every tile: returns (image (T, P, CH) with bg * final_T
-    added, final_T (T, P), n_contrib (T, P)).
+    added, final_T (T, P), n_contrib (T, P)), differentiable in
+    ``dup_data`` and ``bg``.
 
     ``tile_start``/``tile_count`` (T,) int32 are the unaligned ranges into
     the packed ``dup_data`` (ROWS, D_pad); counts above max_chunks * 256
-    are clipped. CUDA tensors go through the kernel, CPU tensors through
-    the plain version.
+    are clipped. CUDA tensors go through the kernels (K1 forward, K2
+    backward), CPU tensors through their plain versions.
     """
-    if dup_data.is_cuda:
-        out = tile_composite_cuda(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
-    elif dup_data.device.type == "cpu":
-        out = tile_composite_plain(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
-    else:
-        raise ValueError(f"no compositing path for device {dup_data.device}")
-    image = out.img + out.final_t[:, :, None] * bg[None, None, :]
-    return image, out.final_t, out.n_contrib
+    return TileComposite.apply(tile_start, tile_count, dup_data, bg, tiles_x, ch, max_chunks)

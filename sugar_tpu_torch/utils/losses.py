@@ -1,5 +1,5 @@
-"""Image losses: L1, windowed SSIM, PSNR (forward; the training slice
-adds the rest of ``sugar_tpu/utils/losses.py``).
+"""Image losses: L1, L2, windowed SSIM, PSNR and the training loss
+0.8 L1 + 0.2 (1 - SSIM). Their gradients come from autograd.
 
 Port of ``sugar_tpu/utils/losses.py``. SSIM is the reference's: 11x11
 Gaussian window with sigma 1.5, per-channel blur with zero same-padding,
@@ -22,6 +22,10 @@ import torch.nn.functional as F
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred - target))
+
+
+def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - target) ** 2)
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -67,3 +71,13 @@ def ssim(
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
     )
     return torch.mean(ssim_map)
+
+
+def rgb_loss_l1_dssim(
+    pred: torch.Tensor, target: torch.Tensor, dssim_factor: float = 0.2
+) -> torch.Tensor:
+    """0.8 * L1 + 0.2 * (1 - SSIM): the training loss of the vanilla trainer
+    (gaussian_splatting/train.py:91-92) and the SuGaR coarse stages."""
+    return (1.0 - dssim_factor) * l1_loss(pred, target) + dssim_factor * (
+        1.0 - ssim(pred, target)
+    )

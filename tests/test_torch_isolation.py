@@ -39,7 +39,9 @@ def test_port_has_the_slice_modules():
     for m in ("core.sh", "core.cameras", "raster.preprocess", "raster.fused",
               "raster.dup_gather", "raster.tile_composite", "raster.api",
               "raster.adaptive", "io.ply", "models.gaussians", "models.render",
-              "utils.losses", "interop", "native"):
+              "utils.losses", "interop", "native", "raster.segsum",
+              "trainers.optimizer", "trainers.schedule", "trainers.vanilla",
+              "models.densifier"):
         assert f"sugar_tpu_torch.{m}" in mods, m
 
 
@@ -62,11 +64,14 @@ def test_imports_without_jax_or_sugar_tpu():
 
 
 def test_importing_builds_nothing():
-    """The kernel library is built on first use, not at import."""
+    """The kernel libraries are built on first use, not at import."""
     code = (
         "import sugar_tpu_torch.raster.tile_composite as t, sugar_tpu_torch.native as n\n"
+        "import sugar_tpu_torch.raster.segsum as s, sugar_tpu_torch.trainers.vanilla\n"
         "assert n._libs == {}\n"
         "assert t.tile_composite_cuda.launches == 0\n"
+        "assert t.tile_composite_bwd_cuda.launches == 0\n"
+        "assert s.segment_sum_cuda.launches == 0\n"
     )
     r = _run(code)
     assert r.returncode == 0, r.stderr[-3000:]
