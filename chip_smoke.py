@@ -9,17 +9,22 @@ It builds the port's three CUDA kernels from ``sugar_tpu_torch/csrc``
 together), then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. prints each kernel's build time and ptxas's register/spill report;
+2. prints each kernel library's build time and, per CUDA kernel in it,
+   ptxas's registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card:
    K1 (compositing forward) and K2 (compositing backward) on a small
    synthetic case (unaligned ranges, empty tiles, a range spanning several
    chunks, early exit, NaN conic/opacity on dropped slots, k_max
-   clipping), K3 (gradient segment-sum) on the cases of
+   clipping) and on a deep case (max_chunks 48: a tile walking 49 chunks,
+   a T_EPS crossing deep in a range, an early exit with NaN and large
+   colors behind it), K3 (gradient segment-sum) on the cases of
    tests/test_segsum.py; then all three at full width on the inputs of
    the first view of a 1M-Gaussian SH-degree-3 model with trained-
    checkpoint statistics (the trained scene of bench.py, with random
    degree-3 SH), written with the port's ``save_ply`` and loaded with
-   ``load_ply(device="cuda")``;
+   ``load_ply(device="cuda")``; there K1 and K2 also run twice (outputs
+   bit-identical) and once under ``torch.cuda.set_sync_debug_mode("error")``
+   (neither wrapper reads the card);
 4. serving: renders that model at 512x512 from 8 views on a ring through
    ``render_adaptive`` + ``render_model`` and checks the overflow
    counters, K1's launch count, the images and the PSNR of the kernel
@@ -35,7 +40,10 @@ together), then:
    from the 8 ring cameras; densify (after iteration 25) and opacity
    reset (after 30) each run; then the train step timed with CUDA events
    and traced under torch.profiler;
-8. prints the kernels line, the card line, and last
+8. times each kernel beside its plain version and bound, K1 and K2 also
+   with every tile_count zeroed but the deepest tile's (the serial walk's
+   share) and per sub-kernel under torch.profiler; then prints the
+   kernels line, the card line, and last
    ``{"ok": true, "device": {...}}`` — only when every check passed.
 
 Each path runs with the launch counts set to 0 just before it and read
@@ -48,6 +56,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -73,6 +82,7 @@ from sugar_tpu_torch.raster.segsum import segment_sum_cuda, segment_sum_plain
 from sugar_tpu_torch.raster.tile_composite import (
     C_CHUNK,
     CompositeOut,
+    _tile_ranges,
     tile_composite,
     tile_composite_bwd_cuda,
     tile_composite_bwd_plain,
@@ -307,6 +317,63 @@ def synthetic_case(seed: int = 0):
     start = np.array([s for s, _ in ranges], np.int32)
     count = np.array([c for _, c in ranges], np.int32)
     return start, count, data, tiles_x, ch, max_chunks
+
+
+DEEP_MAX_CHUNKS = 48
+
+
+def deep_case(seed: int = 0):
+    """Compositing inputs whose tiles walk many chunks (max_chunks 48).
+    Returns (tile_start, tile_count, dup_data, tiles_x, ch, max_chunks) as
+    numpy.
+
+    4 tiles (2 x 2), back to back from slot 100:
+    - tile 0, translucent: 48 x 256 + 300 faint slots (clipped to 48 x
+      256; from an unaligned start they cover 49 chunks), never reaching
+      T_EPS: it walks every chunk;
+    - tile 1: 40 chunks' worth of slots, faint up to local slot 7,808 + 77
+      and opaque (opacity 0.99, wide) after: its pixels cross T_EPS a few
+      slots into a chunk near the 31st of its range, and it exits soon
+      after;
+    - tile 2: a 48 x 256 range opaque from its first slot, so it exits
+      after a chunk or two; its later slots have colors of 1,000 and NaN
+      conics and opacities, which must leak into no output;
+    - tile 3: empty.
+    """
+    g = np.random.default_rng(seed)
+    tiles_x, ch, max_chunks = 2, 3, DEEP_MAX_CHUNKS
+    counts = [max_chunks * C_CHUNK + 300, 40 * C_CHUNK, max_chunks * C_CHUNK, 0]
+    starts = 100 + np.concatenate([[0], np.cumsum(counts)[:-1]])
+    clipped_end = int(starts[2]) + max_chunks * C_CHUNK
+    d_pad = (clipped_end // C_CHUNK + 2) * C_CHUNK
+    owner = np.full(d_pad, -1)
+    local = np.zeros(d_pad, np.int64)
+    for t, (s, c) in enumerate(zip(starts, counts)):
+        owner[s : s + c] = t
+        local[s : s + c] = np.arange(c)
+    tile_of = np.where(owner >= 0, owner, g.integers(0, 4, d_pad))
+    data = np.zeros((round8(6 + ch), d_pad), np.float32)
+    sx = g.uniform(1.5, 4.0, d_pad)
+    sy = g.uniform(1.5, 4.0, d_pad)
+    rho = g.uniform(-0.6, 0.6, d_pad)
+    opac = np.where(owner == 0, g.uniform(0.004, 0.007, d_pad), g.uniform(0.006, 0.012, d_pad))
+    opaque = ((owner == 1) & (local >= 7_808 + 77)) | (owner == 2)
+    sx[opaque] = g.uniform(12.0, 20.0, opaque.sum())
+    sy[opaque] = g.uniform(12.0, 20.0, opaque.sum())
+    opac[opaque] = 0.99
+    det = sx**2 * sy**2 * (1.0 - rho**2)
+    data[0] = (tile_of % tiles_x) * rc.TILE_X + 8 + g.uniform(-8.0, 8.0, d_pad)
+    data[1] = (tile_of // tiles_x) * rc.TILE_Y + 8 + g.uniform(-8.0, 8.0, d_pad)
+    data[2] = sy**2 / det
+    data[3] = -rho * sx * sy / det
+    data[4] = sx**2 / det
+    data[5] = opac
+    data[6 : 6 + ch] = g.uniform(0.0, 1.0, (ch, d_pad))
+    late = (owner == 2) & (local >= 2 * C_CHUNK)
+    data[6 : 6 + ch, late] = 1000.0
+    data[3, late & (local % 7 == 0)] = np.nan
+    data[5, late & (local % 11 == 0)] = np.nan
+    return (starts.astype(np.int32), np.array(counts, np.int32), data, tiles_x, ch, max_chunks)
 
 
 def composite_cotangents(num_tiles: int, ch: int, seed: int):
@@ -579,6 +646,12 @@ def stage_times(model, cam, kw: dict, reps: int = 5) -> dict[str, float]:
     return {k: statistics.median(v) for k, v in st.items()}
 
 
+def kernel_name(name: str) -> str:
+    """A profiler kernel name without its return type, namespaces of
+    anonymous scope and argument list."""
+    return name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+
+
 def profile_device(fn, top: int | None = 12):
     """(wall ms, device-busy ms, [(kernel name, ms, calls)], the ``top``
     most expensive or all when None) of one fn() call under torch.profiler
@@ -619,6 +692,36 @@ class Checks:
             self.failures.append(what)
 
 
+def ptxas_report(log: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, static shared-memory bytes, spill-store bytes)
+    per entry function of an ``nvcc -Xptxas -v`` log, names demangled
+    with c++filt where it exists; of templated kernels only the CH=3
+    instances (the main path's)."""
+    rows, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append([name, int(m.group(1)), int(smem.group(1)) if smem else 0, spill])
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r[0] = kernel_name(n)
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return [tuple(r) for r in rows if "<" not in r[0] or "<3>" in r[0] or "ILi3E" in r[0]]
+
+
 def phase_builds() -> None:
     t0 = time.perf_counter()
     built = native.build_all()
@@ -626,9 +729,9 @@ def phase_builds() -> None:
           f"{time.perf_counter() - t0:.2f} s wall")
     for name, (secs, log) in built.items():
         print(f"    {name}: {secs:.2f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"      ptxas: {line.strip()}")
+        for fn, regs, smem, spill in ptxas_report(log):
+            print(f"      ptxas: {fn}: {regs} registers, {smem} bytes smem, "
+                  f"{spill} bytes spill stores")
 
 
 def check_k2(check, fwd: CompositeOut, args, g_img, gt_total, label: str):
@@ -649,6 +752,76 @@ def check_k2(check, fwd: CompositeOut, args, g_img, gt_total, label: str):
           f"K2 {label}: slots no tile owns and padding rows are exactly 0")
     check(bool(torch.isfinite(kern).all()), f"K2 {label}: d_packed finite (NaN slots gated)")
     return kern, bwd_args, max(v["max_abs_err"] for v in d.values())
+
+
+def phase_deep(check, dev) -> None:
+    """K1 and K2 against their plain versions on deep_case: a tile that
+    walks 49 chunks, one whose pixels cross T_EPS deep in its range, and a
+    long range that exits early (nothing past its exit may reach an
+    output)."""
+    start, count, data, tiles_x, ch, mc = deep_case(0)
+    args = (torch.as_tensor(start, device=dev), torch.as_tensor(count, device=dev),
+            torch.as_tensor(data, device=dev), tiles_x, ch, mc)
+    kern = tile_composite_cuda(*args)
+    torch.cuda.synchronize()
+    d = compare(kern, tile_composite_plain(*args))
+    print(f"[3] K1 vs plain, deep case: {json.dumps(d)}")
+    print(f"    nch {kern.nch.tolist()}")
+    check(compare_ok(d), "deep case agrees with the plain version")
+    check(kern.nch.tolist() == [49, 32, 1, 0],
+          "deep case: 49 chunks walked, a crossing exit after 32, an opaque exit after 1")
+    check(bool(torch.isfinite(kern.img).all()) and float(kern.img.max()) < 1.0,
+          "deep case: no slot past the early exit reaches the image")
+    g_img, g_t = composite_cotangents(len(start), ch, seed=12)
+    d_packed, _, _ = check_k2(check, kern, args, torch.as_tensor(g_img, device=dev),
+                              torch.as_tensor(g_t, device=dev), "deep case")
+    walked_end = (int(start[2]) // C_CHUNK + int(kern.nch[2])) * C_CHUNK
+    check(float(d_packed[:, walked_end:].abs().max()) == 0.0,
+          "deep case: K2 writes no slot past the early exit")
+
+
+def check_repeatable(check, fw_args, bwd_args) -> None:
+    """Two launches of K1 and of K2 give bit-identical outputs (entry_p on
+    the rows written), and one K1 + K2 call under sync debug mode "error"
+    raises nothing: neither wrapper reads the card."""
+    a, b = tile_composite_cuda(*fw_args), tile_composite_cuda(*fw_args)
+    rows = torch.arange(a.entry_p.shape[1], device=a.nch.device)
+    valid = (rows[None, :] < a.nch[:, None])[:, :, None]
+    same = (all(torch.equal(x, y) for x, y in zip(a[:3] + (a.nch,), b[:3] + (b.nch,)))
+            and torch.equal(torch.where(valid, a.entry_p, 0.0), torch.where(valid, b.entry_p, 0.0)))
+    check(same, "K1: two launches give bit-identical outputs")
+    same = torch.equal(tile_composite_bwd_cuda(*bwd_args), tile_composite_bwd_cuda(*bwd_args))
+    check(same, "K2: two launches give bit-identical outputs")
+    torch.cuda.synchronize()
+    err = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tile_composite_cuda(*fw_args)
+        tile_composite_bwd_cuda(*bwd_args)
+    except RuntimeError as e:
+        err = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[3] K1 + K2 under torch.cuda.set_sync_debug_mode('error'): {err or 'no sync'}")
+    check(err is None, "neither wrapper reads the card (sync debug mode 'error')")
+
+
+def deepest_alone(fw_args, nch, bwd_args) -> dict:
+    """K1 and K2 (CUDA events) on the same inputs with every tile_count
+    zeroed except the tile of most processed chunks: the serial walk's
+    share of the whole kernel."""
+    start, count, dup, tiles_x, ch, mc = fw_args
+    t = int(torch.argmax(nch))
+    solo = torch.zeros_like(count)
+    solo[t] = count[t]
+    args = (start, solo, dup, tiles_x, ch, mc)
+    out = tile_composite_cuda(*args)
+    g_img, gt_total = bwd_args[4:6]
+    bargs = (start, solo, out.nch, dup, g_img, gt_total, out.final_t, out.entry_p, tiles_x, ch, mc)
+    return dict(tile=t, nch=int(nch[t]),
+                k1_ms=cuda_ms(lambda: tile_composite_cuda(*args), reps=20, warmup=2),
+                k2_ms=cuda_ms(lambda: tile_composite_bwd_cuda(*bargs), reps=10, warmup=2))
 
 
 def check_k3(check, ct, gid, n, label: str, tol_scale: float = 1.0) -> float:
@@ -887,6 +1060,7 @@ def main() -> int:
     g_img = torch.as_tensor(g_img, device=dev)
     gt_total = (torch.as_tensor(g_t, device=dev) + (g_img * bg).sum(-1)).contiguous()
     check_k2(check, kern, syn, g_img, gt_total, "synthetic case")
+    phase_deep(check, dev)
     for name, (ct, gid, n) in segsum_cases().items():
         check_k3(check, torch.as_tensor(ct, device=dev), torch.as_tensor(gid, device=dev), n, name)
 
@@ -942,11 +1116,15 @@ def main() -> int:
     print(f"    nch per tile: mean {float(nch_sorted.mean()):.2f}, "
           f"p50 {float(nch_sorted[len(nch_sorted) // 2]):.0f}, "
           f"p99 {float(nch_sorted[int(0.99 * len(nch_sorted))]):.0f}, max {float(nch_sorted[-1]):.0f}")
+    covering = int(_tile_ranges(b["tile_start"], b["tile_count"], fw_max_chunks)[3].sum())
+    print(f"    (tile, chunk) pairs: {covering} "
+          f"cover the tiles' ranges, {int(kern.nch.sum())} are processed before the exits")
     num_tiles = b["tile_start"].shape[0]
     g_img, g_t = composite_cotangents(num_tiles, 3, seed=11)
     g_img = torch.as_tensor(g_img, device=dev)
     gt_total = torch.as_tensor(g_t, device=dev).contiguous()
     d_packed, bwd_args, k2_err = check_k2(check, kern, fw_args, g_img, gt_total, "full width")
+    check_repeatable(check, fw_args, bwd_args)
     gid = b["gid"]
     n = N_GAUSS
     gid_sorted, perm = torch.sort(gid, stable=True)
@@ -1038,6 +1216,7 @@ def main() -> int:
     k2_plain_ms = cuda_ms(lambda: tile_composite_bwd_plain(*bwd_args), reps=2)
     k2_bound = composite_bwd_bound(b["tile_start"], b["tile_count"], kern.nch, 3, fw_max_chunks,
                                    dup_data.shape[1])
+    solo = deepest_alone(fw_args, kern.nch, bwd_args)
     k3_ms = cuda_ms(lambda: segment_sum_cuda(ct_sorted, gid_sorted, n), reps=20, warmup=2)
     k3_plain_ms = cuda_ms(lambda: segment_sum_plain(ct_sorted, gid_sorted, n), reps=5)
     k3_lib_ms = cuda_ms(lambda: torch.zeros((9, n + 1), device=dev).index_add_(
@@ -1055,6 +1234,14 @@ def main() -> int:
               f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['bytes']} bytes"
               + (f", {bd['ops']} fp32 ops, {bd['slot_evals']} alpha evaluations" if "ops" in bd
                  else "") + f"){extra}")
+    for name, whole, alone in (("K1", k1_ms, solo["k1_ms"]), ("K2", k2_ms, solo["k2_ms"])):
+        print(f"    {name} deepest tile alone (tile {solo['tile']}, nch {solo['nch']}, every other "
+              f"tile_count 0): {alone:.4f} ms, {alone / whole:.3f} of the whole {whole:.4f} ms")
+    for name, fn in (("K1", lambda: tile_composite_cuda(*fw_args)),
+                     ("K2", lambda: tile_composite_bwd_cuda(*bwd_args))):
+        _, busy, ranked = profile_device(fn, top=None)
+        print(f"    {name} wrapper call under torch.profiler, view 0: device busy {busy:.4f} ms: "
+              + ", ".join(f"{kernel_name(k)} {ms:.4f} ms" for k, ms, _ in ranked))
     print(f"    fwd+bwd, 1M trained scene, 512x512: {fb['ms']:.3f} ms "
           f"({fb['rays_per_s']:.0f} rays/s), mean of 5")
     print(f"    train step, 2^18 scene, 512x512: median {tr['step_ms']:.3f} ms of {TIMED_STEPS} "

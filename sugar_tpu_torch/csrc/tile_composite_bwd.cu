@@ -30,29 +30,44 @@
 // 1/255 cutoff or the T_EPS stop; gated accumulations are selects, so a NaN
 // conic or opacity on a dropped slot gives 0.
 //
-// Design: one block per tile, 256 threads, one thread per pixel; the
-// tile's processed chunks are walked in reverse (the suffix carry S flows
-// from the back). Inside a chunk each pixel recomputes the forward in
-// slot order from entry_p with the forward's own alpha code
-// (composite_common.cuh) and product order, so its include decisions are
-// the forward's, bit for bit: dividing T back by (1 - alpha) could flip
-// the last included slot. Two passes per chunk, as the TPU's
-// `total - inclusive cumsum` suffix: the first sums w (c . g) over the
-// chunk, the second computes the gradients with a running subtraction.
-// Each slot's 6+CH per-pixel terms are summed over the tile's 256 pixels:
-// a warp-shuffle reduction per warp (skipped when no pixel of the warp
-// includes the slot), one partial per warp in shared memory, and then
-// each thread adds the 8 warp partials of one slot in a fixed order and
-// makes one store. A slot belongs to exactly one tile's range, so no two
-// blocks store to one slot: no atomics, and the result is deterministic.
+// Design. The work unit is a (tile, chunk < nch) pair: chunk c needs the
+// later chunks only through the per-pixel carry T_fin * gt_total +
+// sum_{k>c} total_k, where total_k is chunk k's sum of w (c . g). Each
+// slot lies in one tile's range and one chunk, so a pair owns its slots'
+// gradient columns. Three launches on the caller's stream:
+//   1. build_items (one block): the pair list, tile-major, from nch.
+//   2. bwd_total (one block of 256 threads per pair, one thread per
+//      pixel): recomputes the chunk forward from K1's entry_p with K1's
+//      alpha code and product order (entry_p * U_j, composite_common.cuh),
+//      so the include decisions are K1's bit for bit, and stores total_c
+//      per pixel. A pixel stops at its first excluded slot.
+//   3. bwd_grad (one block per pair): adds the later chunks' totals in
+//      reverse chunk order, the order of the serial walk, then recomputes
+//      the chunk and computes each slot's 6+CH per-pixel terms with the
+//      running suffix (total - cumsum) + carry. The terms are summed over
+//      the tile's 256 pixels in two levels: inside a warp, a reduce-scatter
+//      over groups of 4 slots per row (3 exchange shuffles leave each of 4
+//      lane groups one slot's sum over 8 lanes, 3 more finish it: 6
+//      shuffles per 4 values, where a tree per value takes 20), skipped when
+//      no lane of the warp includes a slot of the group or every lane is
+//      past its last included slot; across warps, the 8 warp partials of
+//      each 32-slot window go through 9 KiB of shared memory and are added
+//      in warp order by one thread per (row, slot), which makes the one
+//      store. No atomics; the result is deterministic.
+//
+// Resources per block (ptxas, printed by chip_smoke.py): bwd_total stages
+// (6+CH) x 256 floats (9 KiB at CH=3); bwd_grad that plus the (8, 6+CH,
+// 32) window of warp partials (18 KiB in all), so shared memory allows
+// 12 blocks per SM; registers (the 4 x (6+CH) terms of a group) bound it
+// first, at the 3 blocks per SM that __launch_bounds__ asks for.
 //
 // Bound on an H100 SXM: operations, as for the forward. Each processed
-// (tile, chunk) pair costs two alpha evaluations per (pixel, slot) (about
-// 50 + 4*CH fp32 operations with the gradient terms, chip_smoke.py's
+// (tile, chunk) pair costs up to two alpha evaluations per (pixel, slot)
+// (about 50 + 4*CH fp32 operations with the gradient terms, chip_smoke.py's
 // `_ops_per_eval_bwd`), against bytes of dup_data, entry_p, the
-// cotangents and d_out read or written once. This first version makes no
-// attempt at that bound (recomputation twice per chunk, a shuffle tree per
-// slot and row, full-precision expf and division).
+// cotangents and d_out read or written once. With the serial walk gone,
+// instruction issue (the recomputation, the division, the reduction's
+// shuffles and selects) bounds it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,198 +78,240 @@ namespace {
 
 using sugar::kChunk;
 using sugar::kTEps;
-using sugar::kTile;
+using sugar::block_pair;
+using sugar::Pair;
 
 constexpr int kWarps = kChunk / 32;
+constexpr int kGroup = 4;    // slots per warp reduce-scatter
+constexpr int kWindow = 32;  // slots per flush of the warp partials
 
-template <int CH>
-constexpr int smem_bytes() {
-  return (6 + CH) * kChunk * 4 * (1 + kWarps);
+// Sums v[0..kGroup) over the warp's 32 lanes: on return v[0] holds, in
+// every lane, the sum of value (lane >> 3) & 3. Halving exchanges at
+// offsets 16 and 8 (each lane keeps the half its lane bit selects), then a
+// tree over offsets 4, 2, 1.
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[kGroup], int lane) {
+  static_assert(kGroup == 4, "the exchanges below are written for 4 values");
+  constexpr unsigned kAll = 0xffffffffu;
+  const bool up16 = lane & 16;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float send = up16 ? v[i] : v[i + 2];
+    const float keep = up16 ? v[i + 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(kAll, send, 16);
+  }
+  const bool up8 = lane & 8;
+  const float send = up8 ? v[0] : v[1];
+  v[0] = (up8 ? v[1] : v[0]) + __shfl_xor_sync(kAll, send, 8);
+  v[0] += __shfl_xor_sync(kAll, v[0], 4);
+  v[0] += __shfl_xor_sync(kAll, v[0], 2);
+  v[0] += __shfl_xor_sync(kAll, v[0], 1);
 }
 
 template <int CH>
-__global__ void __launch_bounds__(kChunk) tile_composite_bwd_kernel(
-    const int32_t* __restrict__ tile_start,
-    const int32_t* __restrict__ tile_count,
-    const int32_t* __restrict__ nch,
-    const float* __restrict__ dup,
-    int64_t d_pad, int tiles_x, int max_chunks, int rec,
-    const float* __restrict__ g_img, const float* __restrict__ gt_total,
-    const float* __restrict__ t_fin, const float* __restrict__ entry_p,
-    float* __restrict__ d_out) {
+__global__ void __launch_bounds__(kChunk) bwd_total(
+    const int32_t* __restrict__ tile_start, const int32_t* __restrict__ tile_count,
+    const float* __restrict__ dup, int64_t d_pad, int num_tiles, int tiles_x, int max_chunks,
+    int rec, const int32_t* __restrict__ first, const int32_t* __restrict__ item_tile,
+    const float* __restrict__ g_img, const float* __restrict__ entry_p,
+    float* __restrict__ tot) {
   constexpr int kRows = 6 + CH;
-  extern __shared__ float smem[];
-  float(*s)[kChunk] = reinterpret_cast<float(*)[kChunk]>(smem);
-  // part[w][r][j]: warp w's sum over its 32 pixels of row r for slot j.
-  float(*part)[kRows][kChunk] =
-      reinterpret_cast<float(*)[kRows][kChunk]>(smem + kRows * kChunk);
-
-  const int t = blockIdx.x;
+  __shared__ float s[kRows][kChunk];
+  const Pair pr = block_pair(first, item_tile, num_tiles);
+  if (pr.t < 0) return;
   const int p = threadIdx.x;
-  const int warp = p >> 5;
-  const int lane = p & 31;
-  const int64_t start = tile_start[t];
-  const int count = min(tile_count[t], max_chunks * kChunk);
-  const int64_t end = start + count;
-  const int64_t c0 = start / kChunk;
-  const int n_chunks = nch[t];
-  const float px = static_cast<float>((t % tiles_x) * kTile + p % kTile);
-  const float py = static_cast<float>((t / tiles_x) * kTile + p / kTile);
-
-  const int64_t pix = static_cast<int64_t>(t) * kChunk + p;
+  const sugar::TileRange r = sugar::tile_range(tile_start, tile_count, pr.t, max_chunks);
+  sugar::stage_chunk<kRows>(dup, d_pad, (r.c0 + pr.c) * kChunk, s);
+  __syncthreads();
+  int j_lo, j_hi;
+  sugar::chunk_span(r, pr.c, j_lo, j_hi);
+  float px, py;
+  sugar::pixel_xy(pr.t, tiles_x, px, py);
+  const int64_t pix = static_cast<int64_t>(pr.t) * kChunk + p;
   float g[CH];
 #pragma unroll
   for (int k = 0; k < CH; ++k) g[k] = g_img[pix * CH + k];
-  float carry = t_fin[pix] * gt_total[pix];  // suffix from later chunks
+  const float base = entry_p[(static_cast<int64_t>(pr.t) * rec + pr.c) * kChunk + p];
 
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    const int64_t slot0 = (c0 + c) * kChunk;
-    const int64_t mine = slot0 + p;
-    __syncthreads();  // the previous chunk's readers of s and part are done
+  float u = 1.f;
+  float total = 0.f;
+  for (int j = j_lo; j < j_hi; ++j) {
+    if (!(base * u >= kTEps)) break;  // no later slot is included
+    float dx, dy, e;
+    const float alpha =
+        sugar::slot_alpha(s[0][j], s[1][j], s[2][j], s[3][j], s[4][j], s[5][j], px, py, dx, dy, e);
+    const float un = u * (1.f - alpha);
+    const float a_eff = base * un >= kTEps ? alpha : 0.f;
+    float cdotg = 0.f;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      s[r][p] = mine < d_pad ? dup[r * d_pad + mine] : 0.f;
-    }
-    __syncthreads();
-    const float base_p = entry_p[(static_cast<int64_t>(t) * rec + c) * kChunk + p];
-    const int64_t lo = start - slot0;
-    const int64_t hi = end - slot0;
-    const int j_lo = lo > 0 ? static_cast<int>(lo) : 0;
-    const int j_hi = hi < kChunk ? static_cast<int>(hi) : kChunk;
+    for (int k = 0; k < CH; ++k) cdotg += g[k] * s[6 + k][j];
+    total += (a_eff * (base * u)) * cdotg;
+    u = un;
+  }
+  tot[static_cast<int64_t>(blockIdx.x) * kChunk + p] = total;
+}
 
-    // Pass 1: the chunk's total of w (c . g).
-    float pc = base_p;
-    float total = 0.f;
-    for (int j = j_lo; j < j_hi; ++j) {
-      float dx, dy, e;
-      const float alpha =
-          sugar::slot_alpha(s[0][j], s[1][j], s[2][j], s[3][j], s[4][j], s[5][j], px, py,
-                            dx, dy, e);
-      const float pn = pc * (1.f - alpha);
-      const float a_eff = pn >= kTEps ? alpha : 0.f;
-      float cdotg = 0.f;
-#pragma unroll
-      for (int k = 0; k < CH; ++k) cdotg += g[k] * s[6 + k][j];
-      total += (a_eff * pc) * cdotg;
-      pc = pn;
-    }
+template <int CH>
+__global__ void __launch_bounds__(kChunk, 3) bwd_grad(
+    const int32_t* __restrict__ tile_start, const int32_t* __restrict__ tile_count,
+    const float* __restrict__ dup, int64_t d_pad, int num_tiles, int tiles_x, int max_chunks,
+    int rec, const int32_t* __restrict__ first, const int32_t* __restrict__ item_tile,
+    const float* __restrict__ g_img, const float* __restrict__ gt_total,
+    const float* __restrict__ t_fin, const float* __restrict__ entry_p,
+    const float* __restrict__ tot, float* __restrict__ d_out) {
+  constexpr int kRows = 6 + CH;
+  __shared__ float s[kRows][kChunk];
+  // part[w][r][j]: warp w's sum over its 32 pixels of row r, window slot j.
+  __shared__ float part[kWarps][kRows][kWindow];
+  const Pair pr = block_pair(first, item_tile, num_tiles);
+  if (pr.t < 0) return;
+  const int p = threadIdx.x;
+  const int warp = p >> 5;
+  const int lane = p & 31;
+  const int i0 = first[pr.t];
+  const int n = first[pr.t + 1] - i0;
+  const int64_t pix = static_cast<int64_t>(pr.t) * kChunk + p;
 
-    // Pass 2: the gradients, slot by slot, reduced over the tile's pixels.
-    pc = base_p;
-    float cum = 0.f;
-    for (int j = j_lo; j < j_hi; ++j) {
-      float dx, dy, e;
-      const float op = s[5][j];
-      const float alpha =
-          sugar::slot_alpha(s[0][j], s[1][j], s[2][j], s[3][j], s[4][j], op, px, py,
-                            dx, dy, e);
-      const float pn = pc * (1.f - alpha);
-      const float a_eff = pn >= kTEps ? alpha : 0.f;
-      const float t_in = pc;
-      const float w = a_eff * t_in;
-      float cdotg = 0.f;
-#pragma unroll
-      for (int k = 0; k < CH; ++k) cdotg += g[k] * s[6 + k][j];
-      const float wc = w * cdotg;
-      cum += wc;
-      const float suffix = (total - cum) + carry;
-      const bool act = a_eff > 0.f;
-      const float one_m_a = fmaxf(1.f - a_eff, sugar::kOneMinusClamp);
-      const float dalpha = act ? (t_in * cdotg - suffix / one_m_a) : 0.f;
-      pc = pn;
+  // The suffix from later chunks, added in the serial walk's order.
+  float carry = t_fin[pix] * gt_total[pix];
+  for (int k = n - 1; k > pr.c; --k) carry += tot[static_cast<int64_t>(i0 + k) * kChunk + p];
+  const float total = tot[static_cast<int64_t>(blockIdx.x) * kChunk + p];
 
-      float v[kRows];
-      const float dpower = dalpha * op * e;
-      const float ca = s[2][j], cb = s[3][j], cc = s[4][j];
-      v[0] = act ? dpower * -(ca * dx + cb * dy) : 0.f;
-      v[1] = act ? dpower * -(cc * dy + cb * dx) : 0.f;
-      v[2] = act ? dpower * (-0.5f * dx * dx) : 0.f;
-      v[3] = act ? dpower * -(dx * dy) : 0.f;
-      v[4] = act ? dpower * (-0.5f * dy * dy) : 0.f;
-      v[5] = act ? dalpha * e : 0.f;
+  const sugar::TileRange r = sugar::tile_range(tile_start, tile_count, pr.t, max_chunks);
+  const int64_t slot0 = (r.c0 + pr.c) * kChunk;
+  sugar::stage_chunk<kRows>(dup, d_pad, slot0, s);
+  __syncthreads();
+  int j_lo, j_hi;
+  sugar::chunk_span(r, pr.c, j_lo, j_hi);
+  float px, py;
+  sugar::pixel_xy(pr.t, tiles_x, px, py);
+  float g[CH];
 #pragma unroll
-      for (int k = 0; k < CH; ++k) v[6 + k] = g[k] * w;
+  for (int k = 0; k < CH; ++k) g[k] = g_img[pix * CH + k];
+  const float base = entry_p[(static_cast<int64_t>(pr.t) * rec + pr.c) * kChunk + p];
 
-      if (__any_sync(0xffffffffu, act)) {
+  float u = 1.f;
+  float cum = 0.f;
+  for (int w0 = j_lo & ~(kWindow - 1); w0 < j_hi; w0 += kWindow) {
+#pragma unroll 1
+    for (int g0 = w0; g0 < w0 + kWindow; g0 += kGroup) {
+      float v[kRows][kGroup];
+      bool act_any = false;
+      // Warp-uniform: skip the group when every lane is past its last
+      // included slot (entry_p * U only falls) or the group is unowned.
+      const bool live = g0 + kGroup > j_lo && g0 < j_hi &&
+                        __any_sync(0xffffffffu, base * u >= kTEps);
+      if (live) {
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
+        for (int q = 0; q < kGroup; ++q) {
+          const int j = g0 + q;
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            v[r] += __shfl_down_sync(0xffffffffu, v[r], off);
-          }
+          for (int rr = 0; rr < kRows; ++rr) v[rr][q] = 0.f;
+          if (j < j_lo || j >= j_hi) continue;
+          float dx, dy, e;
+          const float op = s[5][j];
+          const float alpha =
+              sugar::slot_alpha(s[0][j], s[1][j], s[2][j], s[3][j], s[4][j], op, px, py, dx, dy, e);
+          const float un = u * (1.f - alpha);
+          const float a_eff = base * un >= kTEps ? alpha : 0.f;
+          const float t_in = base * u;
+          const float w = a_eff * t_in;
+          float cdotg = 0.f;
+#pragma unroll
+          for (int k = 0; k < CH; ++k) cdotg += g[k] * s[6 + k][j];
+          cum += w * cdotg;
+          const float suffix = (total - cum) + carry;
+          const bool act = a_eff > 0.f;
+          const float one_m_a = fmaxf(1.f - a_eff, sugar::kOneMinusClamp);
+          const float dalpha = act ? (t_in * cdotg - suffix / one_m_a) : 0.f;
+          u = un;
+          act_any |= act;
+          const float dpower = dalpha * op * e;
+          const float ca = s[2][j], cb = s[3][j], cc = s[4][j];
+          v[0][q] = act ? dpower * -(ca * dx + cb * dy) : 0.f;
+          v[1][q] = act ? dpower * -(cc * dy + cb * dx) : 0.f;
+          v[2][q] = act ? dpower * (-0.5f * dx * dx) : 0.f;
+          v[3][q] = act ? dpower * -(dx * dy) : 0.f;
+          v[4][q] = act ? dpower * (-0.5f * dy * dy) : 0.f;
+          v[5][q] = act ? dalpha * e : 0.f;
+#pragma unroll
+          for (int k = 0; k < CH; ++k) v[6 + k][q] = g[k] * w;
         }
-        if (lane == 0) {
+      }
+      const int slot = g0 - w0 + ((lane >> 3) & (kGroup - 1));
+      if (__any_sync(0xffffffffu, act_any)) {
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) part[warp][r][j] = v[r];
+        for (int rr = 0; rr < kRows; ++rr) {
+          warp_reduce_scatter(v[rr], lane);
+          if ((lane & 7) == 0) part[warp][rr][slot] = v[rr][0];
         }
-      } else if (lane == 0) {
+      } else if ((lane & 7) == 0) {
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) part[warp][r][j] = 0.f;
+        for (int rr = 0; rr < kRows; ++rr) part[warp][rr][slot] = 0.f;
       }
     }
-    carry += total;
-
     __syncthreads();
-    // Thread p stores slot j = p of the chunk when its tile owns it.
-    if (p >= j_lo && p < j_hi && mine < d_pad) {
+    // One thread per (row, window slot): the 8 warp partials in warp
+    // order, one store for each slot the tile owns.
+    for (int idx = p; idx < kRows * kWindow; idx += kChunk) {
+      const int rr = idx / kWindow;
+      const int jj = idx % kWindow;
+      const int j = w0 + jj;
+      if (j < j_lo || j >= j_hi || slot0 + j >= d_pad) continue;
+      float acc = 0.f;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float acc = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) acc += part[w][r][p];
-        d_out[r * d_pad + mine] = acc;
-      }
+      for (int w = 0; w < kWarps; ++w) acc += part[w][rr][jj];
+      d_out[rr * d_pad + slot0 + j] = acc;
     }
+    __syncthreads();
   }
 }
 
 template <int CH>
-int launch(const void* tile_start, const void* tile_count, const void* nch,
-           const void* dup, int64_t d_pad, int num_tiles, int tiles_x,
-           int max_chunks, int rec, const void* g_img, const void* gt_total,
-           const void* t_fin, const void* entry_p, void* d_out,
-           cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<CH>();
-  cudaError_t err = cudaFuncSetAttribute(tile_composite_bwd_kernel<CH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tile_composite_bwd_kernel<CH><<<num_tiles, kChunk, bytes, stream>>>(
-      static_cast<const int32_t*>(tile_start),
-      static_cast<const int32_t*>(tile_count), static_cast<const int32_t*>(nch),
-      static_cast<const float*>(dup), d_pad, tiles_x, max_chunks, rec,
-      static_cast<const float*>(g_img), static_cast<const float*>(gt_total),
-      static_cast<const float*>(t_fin), static_cast<const float*>(entry_p),
-      static_cast<float*>(d_out));
-  return static_cast<int>(cudaGetLastError());
+int launch(const int32_t* tile_start, const int32_t* tile_count, const int32_t* nch,
+           const float* dup, int64_t d_pad, int num_tiles, int tiles_x, int max_chunks, int rec,
+           int capacity, const float* g_img, const float* gt_total, const float* t_fin,
+           const float* entry_p, float* d_out, int32_t* first, int32_t* item_tile, float* tot,
+           cudaStream_t st) {
+  sugar::build_items<<<1, sugar::kBuildThreads, 0, st>>>(
+      tile_start, tile_count, nch, num_tiles, max_chunks, capacity, first, item_tile);
+  if (const int err = sugar::last_error()) return err;
+  bwd_total<CH><<<capacity, kChunk, 0, st>>>(tile_start, tile_count, dup, d_pad, num_tiles,
+                                             tiles_x, max_chunks, rec, first, item_tile, g_img,
+                                             entry_p, tot);
+  if (const int err = sugar::last_error()) return err;
+  bwd_grad<CH><<<capacity, kChunk, 0, st>>>(tile_start, tile_count, dup, d_pad, num_tiles,
+                                            tiles_x, max_chunks, rec, first, item_tile, g_img,
+                                            gt_total, t_fin, entry_p, tot, d_out);
+  return sugar::last_error();
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns a CUDA error code (0 on
-// success). ch must be 1..4; d_out must be zero-filled (rows >= 6+ch,
-// d_pad); the Python wrapper checks every argument.
+// Launches the three kernels on `stream` and returns the first nonzero
+// cudaGetLastError() (0 on success). ch must be 1..4; d_out must be
+// zero-filled (rows >= 6+ch, d_pad); capacity >= 1 pairs. Scratch (the
+// wrapper's torch.empty): first (T+1) and item_tile (capacity) int32, tot
+// (capacity*256) float32. The Python wrapper checks every argument.
 extern "C" int sugar_tile_composite_bwd(
-    const void* tile_start, const void* tile_count, const void* nch,
-    const void* dup_data, long long d_pad, int num_tiles, int tiles_x, int ch,
-    int max_chunks, int rec, const void* g_img, const void* gt_total,
-    const void* t_fin, const void* entry_p, void* d_out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const void* tile_start, const void* tile_count, const void* nch, const void* dup_data,
+    long long d_pad, int num_tiles, int tiles_x, int ch, int max_chunks, int rec, int capacity,
+    const void* g_img, const void* gt_total, const void* t_fin, const void* entry_p,
+    void* d_out, void* first, void* item_tile, void* tot, void* stream) {
   if (num_tiles <= 0) return 0;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto i32 = [](const void* x) { return static_cast<const int32_t*>(x); };
+  auto f32 = [](const void* x) { return static_cast<const float*>(x); };
+#define SUGAR_ARGS                                                                              \
+  i32(tile_start), i32(tile_count), i32(nch), f32(dup_data), d_pad, num_tiles, tiles_x,         \
+      max_chunks, rec, capacity, f32(g_img), f32(gt_total), f32(t_fin), f32(entry_p),           \
+      static_cast<float*>(d_out), static_cast<int32_t*>(first), static_cast<int32_t*>(item_tile), \
+      static_cast<float*>(tot), st
   switch (ch) {
-    case 1:
-      return launch<1>(tile_start, tile_count, nch, dup_data, d_pad, num_tiles, tiles_x,
-                       max_chunks, rec, g_img, gt_total, t_fin, entry_p, d_out, st);
-    case 2:
-      return launch<2>(tile_start, tile_count, nch, dup_data, d_pad, num_tiles, tiles_x,
-                       max_chunks, rec, g_img, gt_total, t_fin, entry_p, d_out, st);
-    case 3:
-      return launch<3>(tile_start, tile_count, nch, dup_data, d_pad, num_tiles, tiles_x,
-                       max_chunks, rec, g_img, gt_total, t_fin, entry_p, d_out, st);
-    case 4:
-      return launch<4>(tile_start, tile_count, nch, dup_data, d_pad, num_tiles, tiles_x,
-                       max_chunks, rec, g_img, gt_total, t_fin, entry_p, d_out, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 1: return launch<1>(SUGAR_ARGS);
+    case 2: return launch<2>(SUGAR_ARGS);
+    case 3: return launch<3>(SUGAR_ARGS);
+    case 4: return launch<4>(SUGAR_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef SUGAR_ARGS
 }

@@ -1,13 +1,20 @@
-"""Per-tile alpha compositing: the CUDA kernel, its plain version, dispatch.
+"""Per-tile alpha compositing: the CUDA kernels, their plain versions, dispatch.
 
 Port of ``sugar_tpu/raster/pallas_composite.py`` (``tile_composite`` and
 its custom VJP over the Pallas kernels ``_fwd_kernel`` and
 ``_bwd_kernel``). On CUDA tensors ``tile_composite`` launches the
 hand-written Hopper kernels ``csrc/tile_composite.cu`` (forward, K1) and
 ``csrc/tile_composite_bwd.cu`` (backward, K2); on CPU tensors it runs
-``tile_composite_plain`` and ``tile_composite_bwd_plain``, which follow
-the Pallas kernels' math chunk by chunk. For a CUDA tensor there is no
-fallback: the kernel is built and launched, or the call raises.
+``tile_composite_plain`` and ``tile_composite_bwd_plain``. For a CUDA
+tensor there is no fallback: the kernel is built and launched, or the call
+raises.
+
+Both kernels and both plain versions split the work the same way: the
+unit is a (tile, chunk) pair, listed tile-major by ``work_items``. A
+chunk's include decisions depend on earlier chunks only through the
+pixel's entry product, and its gradient on later chunks only through
+their per-pixel totals, so pairs are computed apart and combined per tile
+in chunk order (see the kernel sources).
 
 Both versions return the same five arrays with the TPU kernel's meanings
 (see the kernel source): the image without background, final_T,
@@ -30,7 +37,7 @@ from sugar_tpu_torch.raster.dup_gather import round8
 C_CHUNK = 256  # dup slots per chunk
 P_TILE = rc.TILE_X * rc.TILE_Y  # pixels per tile
 MAX_CH = 4  # color channels the CUDA kernel is instantiated for
-# Tiles per step of the plain version: one (128, 256, 256) float32
+# Pairs per step of the plain versions: one (128, 256, 256) float32
 # intermediate is 32 MiB, so a full-width frame stays well under 1 GiB.
 _TILE_BATCH = 128
 
@@ -62,9 +69,34 @@ def _tile_ranges(tile_start, tile_count, max_chunks):
     return start, end, c0, n_chunks
 
 
+def pair_capacity(num_tiles: int, d_pad: int, max_chunks: int) -> int:
+    """Pairs the kernels' work lists and scratch are sized for, from
+    shapes alone (no device read). Tile ranges that are disjoint and lie
+    inside [0, d_pad), as binning lays them out, cover at most cdiv(d_pad,
+    256) chunks, and each tile shares at most one chunk with the ranges
+    before it: so sum(n_chunks) <= cdiv(d_pad, 256) + T. No tile walks
+    more than max_chunks + 1 chunks."""
+    by_slots = -(-d_pad // C_CHUNK) + num_tiles
+    return max(1, min(num_tiles * (max_chunks + 1), by_slots))
+
+
+def work_items(n: torch.Tensor):
+    """The kernels' work list (``build_items`` in composite_common.cuh)
+    for per-tile pair counts ``n`` (T,): ``first`` (T+1,) int64, tile t's
+    pairs being first[t] .. first[t+1]-1 (its chunks 0, 1, ... in order),
+    and ``item_tile`` (first[T],) int64. (The kernels also clip the
+    offsets to their capacity, which ``pair_capacity`` sizes so that
+    binned ranges always fit.)"""
+    n = n.to(torch.int64)
+    first = torch.zeros(n.shape[0] + 1, dtype=torch.int64, device=n.device)
+    first[1:] = torch.cumsum(n, 0)
+    tiles = torch.arange(n.shape[0], device=n.device)
+    return first, torch.repeat_interleave(tiles, n)
+
+
 def _chunk_alpha(data, px, py, slots, start, end):
     """(gated alpha, exp(gated power), dx, dy), each (L, P, C), of one
-    chunk per tile (``_chunk_alpha`` of the Pallas kernel). data (6+CH, L,
+    chunk per pair (``_chunk_alpha`` of the Pallas kernel). data (6+CH, L,
     C); px, py (L, P); slots (L, C) global slot indices; start, end (L,)."""
     dx = data[R_MX][:, None, :] - px[:, :, None]
     dy = data[R_MY][:, None, :] - py[:, :, None]
@@ -81,19 +113,38 @@ def _chunk_alpha(data, px, py, slots, start, end):
     return torch.where(keep, alpha, 0.0), e, dx, dy
 
 
-def _chunk_data(data_rows, idx, c, c0, tiles_x):
-    """Chunk c of each tile in ``idx`` (L,): global slot indices (L, C),
-    the packed rows (R, L, C) (zero past the array's end) and the pixel
-    coordinates px, py (L, P) as float32."""
+def _chunk_data(data_rows, tiles, chunks, c0, tiles_x):
+    """Chunk ``chunks`` (L,) of each tile in ``tiles`` (L,): global slot
+    indices (L, C), the packed rows (R, L, C) (zero past the array's end)
+    and the pixel coordinates px, py (L, P) as float32."""
     dev = data_rows.device
     d_pad = data_rows.shape[1]
-    slots = ((c0[idx] + c) * C_CHUNK)[:, None] + torch.arange(C_CHUNK, device=dev)
+    slots = ((c0[tiles] + chunks) * C_CHUNK)[:, None] + torch.arange(C_CHUNK, device=dev)
     data = data_rows[:, torch.clamp(slots, max=d_pad - 1)]
     data = torch.where(slots < d_pad, data, 0.0)
     pix = torch.arange(P_TILE, device=dev)
-    px = ((idx % tiles_x) * rc.TILE_X)[:, None] + pix % rc.TILE_X
-    py = (torch.div(idx, tiles_x, rounding_mode="floor") * rc.TILE_Y)[:, None] + pix // rc.TILE_X
+    px = ((tiles % tiles_x) * rc.TILE_X)[:, None] + pix % rc.TILE_X
+    py = (torch.div(tiles, tiles_x, rounding_mode="floor") * rc.TILE_Y)[:, None] + pix // rc.TILE_X
     return slots, data, px.to(torch.float32), py.to(torch.float32)
+
+
+def _pair_batches(first, item_tile):
+    """(pair indices, tiles, chunks) of the listed pairs, _TILE_BATCH at a
+    time."""
+    num = item_tile.numel()
+    for b0 in range(0, num, _TILE_BATCH):
+        it = torch.arange(b0, min(num, b0 + _TILE_BATCH), device=item_tile.device)
+        tiles = item_tile[it]
+        yield it, tiles, it - first[tiles]
+
+
+def _chunk_products(data, px, py, slots, start, end):
+    """alpha (L, P, C), the inclusive local products U (L, P, C) and the
+    exclusive ones (U before each slot)."""
+    alpha, e, dx, dy = _chunk_alpha(data, px, py, slots, start, end)
+    uprod = torch.cumprod(1.0 - alpha, dim=2)
+    excl = torch.cat([torch.ones_like(uprod[:, :, :1]), uprod[:, :, :-1]], dim=2)
+    return alpha, uprod, excl, (e, dx, dy)
 
 
 def tile_composite_plain(
@@ -106,16 +157,34 @@ def tile_composite_plain(
 ) -> CompositeOut:
     """The compositing kernel's plain PyTorch version, on any device.
 
-    Follows the Pallas kernel chunk by chunk, vectorized over the tiles
-    still live at each chunk, ``_TILE_BATCH`` tiles at a time: a per-chunk
-    ``cumprod`` of (1 - alpha), the include prefix, a gated minimum for the
-    chunk's transmittance, and the same tile-level exit rule.
+    Follows the kernel's split (csrc/tile_composite.cu), vectorized over
+    pairs ``_TILE_BATCH`` at a time: (a) per pair, the local products U
+    (a ``cumprod`` of 1 - alpha), the unscaled color sum L = sum alpha_j
+    U_{j-1} c_j and the count of alpha > 0; (b) per tile in chunk order,
+    the entry products, the exit rule and the fully included chunks (entry
+    * U_last >= T_EPS) added as entry * L; (c) the one chunk per pixel in
+    which its product crosses T_EPS, composited with the Pallas kernel's
+    include prefix (entry * U_j >= T_EPS) and gated minimum.
     """
     dev = dup_data.device
     num_tiles = tile_start.shape[0]
     data_rows = dup_data[: R_COL + ch]
     start, end, c0, n_chunks = _tile_ranges(tile_start, tile_count, max_chunks)
+    first, item_tile = work_items(n_chunks)
 
+    # (a) Each listed pair alone.
+    n_pairs = item_tile.numel()
+    u_last = torch.empty((n_pairs, P_TILE), dtype=torch.float32, device=dev)
+    lsum = torch.empty((n_pairs, P_TILE, ch), dtype=torch.float32, device=dev)
+    cnt = torch.empty((n_pairs, P_TILE), dtype=torch.int32, device=dev)
+    for it, tiles, chunks in _pair_batches(first, item_tile):
+        slots, data, px, py = _chunk_data(data_rows, tiles, chunks, c0, tiles_x)
+        alpha, uprod, excl, _ = _chunk_products(data, px, py, slots, start[tiles], end[tiles])
+        u_last[it] = uprod[:, :, -1]
+        lsum[it] = torch.bmm(alpha * excl, data[R_COL : R_COL + ch].permute(1, 2, 0))
+        cnt[it] = (alpha > 0).sum(dim=2, dtype=torch.int32)
+
+    # (b) The entry scan, tile by tile in chunk order.
     img = torch.zeros((num_tiles, P_TILE, ch), dtype=torch.float32, device=dev)
     final_t = torch.ones((num_tiles, P_TILE), dtype=torch.float32, device=dev)
     n_contrib = torch.zeros((num_tiles, P_TILE), dtype=torch.int32, device=dev)
@@ -123,36 +192,51 @@ def tile_composite_plain(
         (num_tiles, round8(max_chunks + 1), P_TILE), dtype=torch.float32, device=dev
     )
     nch = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
+    cross = torch.full((num_tiles, P_TILE), -1, dtype=torch.int64, device=dev)
     p_carry = torch.ones((num_tiles, P_TILE), dtype=torch.float32, device=dev)
-
     max_n = int(n_chunks.max()) if num_tiles else 0
     for c in range(max_n):
         # A tile leaves the walk for good at its first chunk entry where no
         # pixel's running product is >= T_EPS (products never grow).
-        live = (n_chunks > c) & (p_carry.amax(dim=1) >= rc.T_EPS)
-        live_idx = torch.nonzero(live).flatten()
-        if live_idx.numel() == 0:
+        live = (n_chunks > c) & (nch == c) & (p_carry.amax(dim=1) >= rc.T_EPS)
+        idx = torch.nonzero(live).flatten()
+        if idx.numel() == 0:
             break
-        for b0 in range(0, live_idx.numel(), _TILE_BATCH):
-            idx = live_idx[b0 : b0 + _TILE_BATCH]
-            slots, data, px, py = _chunk_data(data_rows, idx, c, c0, tiles_x)
-            alpha, _, _, _ = _chunk_alpha(data, px, py, slots, start[idx], end[idx])
-            pc = p_carry[idx]  # (L, P)
-            entry_p[idx, c] = pc
-            uprod = torch.cumprod(1.0 - alpha, dim=2)  # (L, P, C) inclusive
-            include = pc[:, :, None] * uprod >= rc.T_EPS  # a prefix per pixel
-            a_eff = torch.where(include, alpha, 0.0)
-            excl = torch.cat([torch.ones_like(uprod[:, :, :1]), uprod[:, :, :-1]], dim=2)
-            w = a_eff * (pc[:, :, None] * excl)  # weight = alpha * T before the slot
-            color = data[R_COL : R_COL + ch].permute(1, 2, 0)  # (L, C, CH)
-            img[idx] += torch.bmm(w, color)
-            # Gated chunk product = U at the last included slot = the min
-            # over the included prefix (U is nonincreasing).
-            t_chunk = torch.where(include, uprod, 1.0).amin(dim=2)
-            final_t[idx] *= t_chunk
-            p_carry[idx] = pc * uprod[:, :, -1]
-            n_contrib[idx] += (a_eff > 0).sum(dim=2, dtype=torch.int32)
-            nch[idx] += 1
+        i = first[idx] + c
+        pc = p_carry[idx]
+        entry_p[idx, c] = pc
+        pn = pc * u_last[i]
+        full = pn >= rc.T_EPS  # every slot of the chunk is included
+        img[idx] += torch.where(full[:, :, None], pc[:, :, None] * lsum[i], 0.0)
+        final_t[idx] = torch.where(full, final_t[idx] * u_last[i], final_t[idx])
+        n_contrib[idx] += torch.where(full, cnt[i], 0)
+        cross[idx] = torch.where(~full & (pc >= rc.T_EPS), c, cross[idx])
+        p_carry[idx] = pn
+        nch[idx] += 1
+
+    # (c) The crossing chunks: the included prefix of each.
+    crossed = torch.nonzero(cross >= 0)[:, 0]
+    pairs = torch.unique(crossed * (max_n + 1) + cross[cross >= 0])
+    for b0 in range(0, pairs.numel(), _TILE_BATCH):
+        pb = pairs[b0 : b0 + _TILE_BATCH]
+        tiles = torch.div(pb, max_n + 1, rounding_mode="floor")
+        chunks = pb % (max_n + 1)
+        slots, data, px, py = _chunk_data(data_rows, tiles, chunks, c0, tiles_x)
+        alpha, uprod, excl, _ = _chunk_products(data, px, py, slots, start[tiles], end[tiles])
+        base = entry_p[tiles, chunks][:, :, None]
+        include = base * uprod >= rc.T_EPS  # a prefix per pixel
+        a_eff = torch.where(include, alpha, 0.0)
+        w = a_eff * (base * excl)  # weight = alpha * T before the slot
+        part = torch.bmm(w, data[R_COL : R_COL + ch].permute(1, 2, 0))
+        # Gated chunk product = U at the last included slot = the min over
+        # the included prefix (U is nonincreasing).
+        t_chunk = torch.where(include, uprod, 1.0).amin(dim=2)
+        # Each pixel crosses in one chunk: the (tile, pixel) targets differ.
+        k, pix = torch.nonzero(cross[tiles] == chunks[:, None], as_tuple=True)
+        t = tiles[k]
+        img[t, pix] += part[k, pix]
+        final_t[t, pix] *= t_chunk[k, pix]
+        n_contrib[t, pix] += (a_eff[k, pix] > 0).sum(dim=1, dtype=torch.int32)
     return CompositeOut(img, final_t, n_contrib, entry_p, nch)
 
 
@@ -172,63 +256,105 @@ def tile_composite_bwd_plain(
     """The compositing backward's plain PyTorch version, on any device:
     d_packed (ROWS, D_pad), the gradient of each dup slot's packed rows.
 
-    Follows the Pallas backward (``pallas_composite.py:307-399``) chunk by
-    chunk in reverse over the ``nch`` chunks the forward processed: the
-    chunk's include prefix and t_in from its ``entry_p`` row, the suffix
-    ``total - inclusive cumsum`` of w (c . g) plus the carry from later
-    chunks (starting at T_fin * gt_total), and dL/dalpha = t_in (c . g) -
-    suffix / max(1 - alpha, 0.01) on included slots. Gated terms are
+    Follows the kernel's split (csrc/tile_composite_bwd.cu) over the pairs
+    (tile, chunk < nch): (a) each pair's per-pixel total of w (c . g),
+    with the include prefix and t_in from the chunk's ``entry_p`` row;
+    (b) each pair's carry T_fin * gt_total + sum of the later chunks'
+    totals, added in reverse chunk order; (c) the Pallas backward's
+    gradients (``pallas_composite.py:307-399``): the suffix ``total -
+    inclusive cumsum`` plus the carry, dL/dalpha = t_in (c . g) - suffix /
+    max(1 - alpha, 0.01) on included slots. Gated terms are
     where()-selected, so NaN on a dropped slot gives 0. Slots outside
     every processed tile range stay 0.
     """
+    dev = dup_data.device
     d_pad = dup_data.shape[1]
     data_rows = dup_data[: R_COL + ch]
     start, end, c0, _ = _tile_ranges(tile_start, tile_count, max_chunks)
+    first, item_tile = work_items(nch)
+    n_pairs = item_tile.numel()
+
+    def chunk_terms(tiles, chunks):
+        slots, data, px, py = _chunk_data(data_rows, tiles, chunks, c0, tiles_x)
+        alpha, uprod, excl, ex = _chunk_products(data, px, py, slots, start[tiles], end[tiles])
+        base = entry_p[tiles, chunks][:, :, None]  # (L, P, 1)
+        a_eff = torch.where(base * uprod >= rc.T_EPS, alpha, 0.0)
+        t_in = base * excl
+        g = g_img[tiles]  # (L, P, CH)
+        cdotg = torch.bmm(g, data[R_COL : R_COL + ch].permute(1, 0, 2))  # (L, P, C)
+        return slots, data, a_eff, t_in, g, cdotg, ex
+
+    # (a) Per-pair totals.
+    tot = torch.empty((n_pairs, P_TILE), dtype=torch.float32, device=dev)
+    for it, tiles, chunks in _pair_batches(first, item_tile):
+        _, _, a_eff, t_in, _, cdotg, _ = chunk_terms(tiles, chunks)
+        tot[it] = (a_eff * t_in * cdotg).sum(dim=2)
+
+    # (b) Carries, from the last processed chunk back.
+    carry = torch.empty_like(tot)
+    run = t_fin * gt_total  # (T, P)
+    nch = nch.to(torch.int64)
+    for c in range(int(nch.max()) - 1 if nch.numel() else -1, -1, -1):
+        idx = torch.nonzero(nch > c).flatten()
+        i = first[idx] + c
+        carry[i] = run[idx]
+        run[idx] += tot[i]
+
+    # (c) Gradients, pair by pair; each slot has one owning pair.
     d_packed = torch.zeros_like(dup_data)
     d_live = d_packed[: R_COL + ch]
-    carry = t_fin * gt_total  # (T, P) suffix carried from later chunks
-    nch = nch.to(torch.int64)
-    max_n = int(nch.max()) if nch.numel() else 0
-    for c in range(max_n - 1, -1, -1):
-        live_idx = torch.nonzero(nch > c).flatten()
-        for b0 in range(0, live_idx.numel(), _TILE_BATCH):
-            idx = live_idx[b0 : b0 + _TILE_BATCH]
-            slots, data, px, py = _chunk_data(data_rows, idx, c, c0, tiles_x)
-            alpha, e, dx, dy = _chunk_alpha(data, px, py, slots, start[idx], end[idx])
-            base_p = entry_p[idx, c][:, :, None]  # (L, P, 1)
-            uprod = torch.cumprod(1.0 - alpha, dim=2)
-            a_eff = torch.where(base_p * uprod >= rc.T_EPS, alpha, 0.0)
-            excl = torch.cat([torch.ones_like(uprod[:, :, :1]), uprod[:, :, :-1]], dim=2)
-            t_in = base_p * excl
-            w = a_eff * t_in
-            g = g_img[idx]  # (L, P, CH)
-            cdotg = torch.bmm(g, data[R_COL : R_COL + ch].permute(1, 0, 2))  # (L, P, C)
-            wc = w * cdotg
-            total = wc.sum(dim=2, keepdim=True)
-            suffix = (total - torch.cumsum(wc, dim=2)) + carry[idx][:, :, None]
-            act = a_eff > 0.0
-            one_m_a = torch.clamp(1.0 - a_eff, min=1.0 - rc.ALPHA_CLAMP)
-            dalpha = torch.where(act, t_in * cdotg - suffix / one_m_a, 0.0)
-            dpower = dalpha * data[R_OP][:, None, :] * e
-            ca, cb, cc = (data[r][:, None, :] for r in (R_CA, R_CB, R_CC))
-            terms = [
-                dpower * -(ca * dx + cb * dy),
-                dpower * -(cc * dy + cb * dx),
-                dpower * (-0.5 * dx * dx),
-                dpower * -(dx * dy),
-                dpower * (-0.5 * dy * dy),
-                dalpha * e,
-            ]
-            rows = [torch.where(act, x, 0.0).sum(dim=1) for x in terms]  # (L, C) each
-            d_col = torch.bmm(g.transpose(1, 2), w)  # (L, CH, C)
-            contrib = torch.cat([torch.stack(rows), d_col.permute(1, 0, 2)], dim=0)
-            owned = (slots >= start[idx][:, None]) & (slots < end[idx][:, None]) & (slots < d_pad)
-            contrib = torch.where(owned, contrib, 0.0)
-            d_live.index_add_(
-                1, torch.clamp(slots, max=d_pad - 1).reshape(-1), contrib.reshape(R_COL + ch, -1)
-            )
-            carry[idx] += total[:, :, 0]
+    for it, tiles, chunks in _pair_batches(first, item_tile):
+        slots, data, a_eff, t_in, g, cdotg, (e, dx, dy) = chunk_terms(tiles, chunks)
+        w = a_eff * t_in
+        wc = w * cdotg
+        suffix = (tot[it][:, :, None] - torch.cumsum(wc, dim=2)) + carry[it][:, :, None]
+        act = a_eff > 0.0
+        one_m_a = torch.clamp(1.0 - a_eff, min=1.0 - rc.ALPHA_CLAMP)
+        dalpha = torch.where(act, t_in * cdotg - suffix / one_m_a, 0.0)
+        dpower = dalpha * data[R_OP][:, None, :] * e
+        ca, cb, cc = (data[r][:, None, :] for r in (R_CA, R_CB, R_CC))
+        terms = [
+            dpower * -(ca * dx + cb * dy),
+            dpower * -(cc * dy + cb * dx),
+            dpower * (-0.5 * dx * dx),
+            dpower * -(dx * dy),
+            dpower * (-0.5 * dy * dy),
+            dalpha * e,
+        ]
+        rows = [torch.where(act, x, 0.0).sum(dim=1) for x in terms]  # (L, C) each
+        d_col = torch.bmm(g.transpose(1, 2), w)  # (L, CH, C)
+        contrib = torch.cat([torch.stack(rows), d_col.permute(1, 0, 2)], dim=0)
+        owned = (slots >= start[tiles][:, None]) & (slots < end[tiles][:, None]) & (slots < d_pad)
+        contrib = torch.where(owned, contrib, 0.0)
+        d_live.index_add_(
+            1, torch.clamp(slots, max=d_pad - 1).reshape(-1), contrib.reshape(R_COL + ch, -1)
+        )
     return d_packed
+
+
+def fwd_scratch(num_tiles: int, capacity: int, ch: int, device) -> dict[str, torch.Tensor]:
+    """The forward kernels' scratch, by name in the C interface's order:
+    the work list (``first`` (T+1,), ``item_tile`` (capacity,)), each
+    pixel's crossing chunk (T*256,), and per pair the count plane
+    (capacity*256,) int32 and the CH color planes plus the U plane
+    (capacity*(CH+1)*256,) float32. The wrapper drops them when it returns,
+    before the kernels have run: PyTorch's caching allocator hands their
+    blocks only to later work on the same stream, which runs after them."""
+    def empty(n, dtype=torch.int32):
+        return torch.empty((n,), dtype=dtype, device=device)
+
+    return dict(first=empty(num_tiles + 1), item_tile=empty(capacity),
+                cross=empty(num_tiles * P_TILE), npart=empty(capacity * P_TILE),
+                part=empty(capacity * (ch + 1) * P_TILE, torch.float32))
+
+
+def bwd_scratch(num_tiles: int, capacity: int, device) -> dict[str, torch.Tensor]:
+    """The backward kernels' scratch, in the C interface's order: the work
+    list (``first``, ``item_tile``) and each pair's totals (capacity*256,)
+    float32."""
+    return dict(first=torch.empty((num_tiles + 1,), dtype=torch.int32, device=device),
+                item_tile=torch.empty((capacity,), dtype=torch.int32, device=device),
+                tot=torch.empty((capacity * P_TILE,), dtype=torch.float32, device=device))
 
 
 def _kernel_lib():
@@ -238,8 +364,8 @@ def _kernel_lib():
         vp = ctypes.c_void_p
         fn.argtypes = [
             vp, vp, vp, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            vp, vp, vp, vp, vp, vp,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -275,27 +401,30 @@ def tile_composite_cuda(
     ch: int,
     max_chunks: int,
 ) -> CompositeOut:
-    """Launch the Hopper compositing kernel on the current stream.
+    """Launch the Hopper compositing kernels on the current stream.
 
-    Raises on inputs the kernel does not take and when the launch fails.
-    ``tile_composite_cuda.launches`` counts successful launches.
+    Raises on inputs the kernel does not take and when a launch fails.
+    ``tile_composite_cuda.launches`` counts successful calls (each call
+    launches the four sub-kernels of csrc/tile_composite.cu).
     """
     _check_inputs(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
     fn = _kernel_lib()
     dev = dup_data.device
     num_tiles = tile_start.shape[0]
     rec = round8(max_chunks + 1)
+    cap = pair_capacity(num_tiles, dup_data.shape[1], max_chunks)
     img = torch.empty((num_tiles, P_TILE, ch), dtype=torch.float32, device=dev)
     final_t = torch.empty((num_tiles, P_TILE), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((num_tiles, P_TILE), dtype=torch.int32, device=dev)
     entry_p = torch.empty((num_tiles, rec, P_TILE), dtype=torch.float32, device=dev)
     nch = torch.empty((num_tiles,), dtype=torch.int32, device=dev)
+    scratch = fwd_scratch(num_tiles, cap, ch, dev)
     with torch.cuda.device(dev):
         err = fn(
             tile_start.data_ptr(), tile_count.data_ptr(), dup_data.data_ptr(),
-            dup_data.shape[1], num_tiles, tiles_x, ch, max_chunks, rec,
+            dup_data.shape[1], num_tiles, tiles_x, ch, max_chunks, rec, cap,
             img.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
-            entry_p.data_ptr(), nch.data_ptr(),
+            entry_p.data_ptr(), nch.data_ptr(), *(x.data_ptr() for x in scratch.values()),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -313,8 +442,8 @@ def _bwd_fn():
         vp = ctypes.c_void_p
         fn.argtypes = [
             vp, vp, vp, vp, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            vp, vp, vp, vp, vp, vp,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -333,10 +462,11 @@ def tile_composite_bwd_cuda(
     ch: int,
     max_chunks: int,
 ) -> torch.Tensor:
-    """Launch the Hopper compositing-backward kernel on the current stream;
-    returns d_packed (ROWS, D_pad). Raises on inputs the kernel does not
-    take and when the launch fails. ``tile_composite_bwd_cuda.launches``
-    counts successful launches."""
+    """Launch the Hopper compositing-backward kernels on the current
+    stream; returns d_packed (ROWS, D_pad). Raises on inputs the kernel
+    does not take and when a launch fails. ``tile_composite_bwd_cuda.
+    launches`` counts successful calls (each launches the three sub-kernels
+    of csrc/tile_composite_bwd.cu)."""
     _check_inputs(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
     num_tiles = tile_start.shape[0]
     expect = {
@@ -356,14 +486,17 @@ def tile_composite_bwd_cuda(
             or not entry_p.is_contiguous()):
         raise ValueError("entry_p must be a contiguous float32 (T, >= max_chunks+1, 256) tensor")
     fn = _bwd_fn()
-    d_packed = torch.zeros_like(dup_data)
     dev = dup_data.device
+    cap = pair_capacity(num_tiles, dup_data.shape[1], max_chunks)
+    d_packed = torch.zeros_like(dup_data)
+    scratch = bwd_scratch(num_tiles, cap, dev)
     with torch.cuda.device(dev):
         err = fn(
             tile_start.data_ptr(), tile_count.data_ptr(), nch.data_ptr(), dup_data.data_ptr(),
-            dup_data.shape[1], num_tiles, tiles_x, ch, max_chunks, rec,
+            dup_data.shape[1], num_tiles, tiles_x, ch, max_chunks, rec, cap,
             g_img.data_ptr(), gt_total.data_ptr(), t_fin.data_ptr(), entry_p.data_ptr(),
-            d_packed.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            d_packed.data_ptr(), *(x.data_ptr() for x in scratch.values()),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"tile_composite_bwd kernel launch failed: CUDA error {err}")
@@ -425,8 +558,9 @@ def tile_composite(
     ``dup_data`` and ``bg``.
 
     ``tile_start``/``tile_count`` (T,) int32 are the unaligned ranges into
-    the packed ``dup_data`` (ROWS, D_pad); counts above max_chunks * 256
-    are clipped. CUDA tensors go through the kernels (K1 forward, K2
-    backward), CPU tensors through their plain versions.
+    the packed ``dup_data`` (ROWS, D_pad), disjoint and inside [0, D_pad)
+    as binning lays them out; counts above max_chunks * 256 are clipped.
+    CUDA tensors go through the kernels (K1 forward, K2 backward), CPU
+    tensors through their plain versions.
     """
     return TileComposite.apply(tile_start, tile_count, dup_data, bg, tiles_x, ch, max_chunks)

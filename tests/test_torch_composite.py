@@ -1,5 +1,8 @@
 """tile_composite_plain against the JAX package's Pallas compositing kernel
-(run in interpret mode on the CPU, as tests/test_pallas.py runs it).
+(run in interpret mode on the CPU, as tests/test_pallas.py runs it). The
+plain version replays the CUDA kernel's split into (tile, chunk) pairs, so
+these tests hold that decomposition to the Pallas kernel; the deep case
+walks 49 chunks, crosses T_EPS deep in a range and exits early in another.
 
 Tolerances: image and final_T atol 1e-5 (the plain version's cumprod and
 bmm round differently from the Pallas kernel's lane scan and MXU
@@ -45,6 +48,7 @@ def random_case(seed, tiles_x, tiles_y, ch, max_chunks):
 
 CASES = {
     "synthetic": lambda: chip_smoke.synthetic_case(0),
+    "deep": lambda: chip_smoke.deep_case(0),
     "random_ch3": lambda: random_case(1, 4, 4, 3, 2),
     "random_ch1": lambda: random_case(2, 3, 4, 1, 3),
 }
@@ -94,6 +98,8 @@ def test_cases_cover_early_exit_and_multichunk():
     assert ref["nch"][3] < 3 and ref["nch"][2] == 4 and ref["nch"][0] == 0
     ref, _ = composited("random_ch3")
     assert (ref["nch"] >= 2).any()
+    ref, _ = composited("deep")
+    assert ref["nch"].tolist() == [49, 32, 1, 0]
 
 
 def test_tile_batch_does_not_change_results(monkeypatch):

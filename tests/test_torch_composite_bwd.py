@@ -3,7 +3,9 @@ TileComposite autograd Function) against jax.vjp of the JAX package's
 tile_composite, whose Pallas backward runs in interpret mode on the CPU.
 
 Cases: chip_smoke's synthetic case (unaligned ranges, empty tiles, early
-exit, k_max clipping, NaN conic/opacity on dropped slots), two random
+exit, k_max clipping, NaN conic/opacity on dropped slots), its deep case
+(49 chunks, a crossing deep in a range, NaN and large colors past an
+early exit), two random
 layouts, and the ranges and dup data of a small scene binned by the
 port. Cotangents of the image and of final_T are drawn from a numpy seed.
 Tolerance per gradient block: 2e-5 * max|g| + 1e-9 (tests/test_pallas.py:
@@ -48,6 +50,7 @@ def binned_case():
 
 CASES = {
     "synthetic": lambda: chip_smoke.synthetic_case(0),
+    "deep": lambda: chip_smoke.deep_case(0),
     "random_ch3": lambda: random_case(1, 4, 4, 3, 2),
     "random_ch1": lambda: random_case(2, 3, 4, 1, 3),
     "binned_scene": binned_case,
