@@ -38,24 +38,35 @@ def _kernel_fn():
     return fn
 
 
-def segment_sum_cuda(ct: torch.Tensor, gid: torch.Tensor, n: int) -> torch.Tensor:
-    """Launch the Hopper segment-sum kernel on the current stream. ``gid``
-    must be ascending (the kernel finds segments from neighbouring ids).
-    ``segment_sum_cuda.launches`` counts successful launches."""
+MAX_ROWS = 16  # the kernel's row counts: 1..MAX_ROWS
+
+
+def _check(ct: torch.Tensor, gid: torch.Tensor, n: int) -> None:
     if not ct.is_cuda:
         raise ValueError("segment_sum_cuda needs CUDA tensors")
     if gid.device != ct.device:
         raise ValueError(f"gid is on {gid.device}, ct on {ct.device}")
     if ct.dtype != torch.float32 or ct.dim() != 2 or not ct.is_contiguous():
         raise ValueError("ct must be a contiguous 2-D float32 tensor")
+    if not 1 <= ct.shape[0] <= MAX_ROWS:
+        raise ValueError(f"ct must have 1 to {MAX_ROWS} rows, got {ct.shape[0]}")
     if gid.dtype != torch.int32 or gid.dim() != 1 or not gid.is_contiguous():
         raise ValueError("gid must be a contiguous 1-D int32 tensor")
     if gid.shape[0] != ct.shape[1]:
         raise ValueError(f"gid has {gid.shape[0]} ids for {ct.shape[1]} columns")
     if not 1 <= n < 2**31:
         raise ValueError(f"n must be in [1, 2^31), got {n}")
+
+
+def _launch(ct: torch.Tensor, gid: torch.Tensor, n: int, out: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel into ``out`` (rows, n), which it overwrites
+    entirely, on the current stream; counts the launch."""
+    _check(ct, gid, n)
+    if out.shape != (ct.shape[0], n) or out.dtype != torch.float32 or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous float32 ({ct.shape[0]}, {n}) tensor")
+    if out.device != ct.device:
+        raise ValueError(f"out is on {out.device}, ct on {ct.device}")
     fn = _kernel_fn()
-    out = torch.zeros((ct.shape[0], n), dtype=torch.float32, device=ct.device)
     with torch.cuda.device(ct.device):
         err = fn(
             ct.data_ptr(), gid.data_ptr(), ct.shape[1], ct.shape[0], n, out.data_ptr(),
@@ -65,6 +76,17 @@ def segment_sum_cuda(ct: torch.Tensor, gid: torch.Tensor, n: int) -> torch.Tenso
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error {err}")
     segment_sum_cuda.launches += 1
     return out
+
+
+def segment_sum_cuda(ct: torch.Tensor, gid: torch.Tensor, n: int) -> torch.Tensor:
+    """Launch the Hopper segment-sum kernel on the current stream. ``gid``
+    must be ascending (each block finds its columns by searching the
+    sorted ids). The kernel writes every output element, so the output is
+    allocated uninitialized. ``segment_sum_cuda.launches`` counts
+    successful launches."""
+    _check(ct, gid, n)
+    out = torch.empty((ct.shape[0], n), dtype=torch.float32, device=ct.device)
+    return _launch(ct, gid, n, out)
 
 
 segment_sum_cuda.launches = 0

@@ -4,8 +4,12 @@ gather's backward against the JAX package.
 segment_sum_plain is held against sugar_tpu's segment_sum_sorted twice:
 through its Pallas kernel (force_kernel=True, interpret mode on the CPU)
 and through its pure-XLA reference path, on the cases of
-tests/test_segsum.py plus segments longer than 16 slots. Tolerance rtol
-and atol 1e-5 (the sums are taken in other orders).
+tests/test_segsum.py plus segments longer than 16 slots, and on the edge
+cases of the Hopper kernel's id-range blocks (no live id, live ids only
+near n - 1, negative ids, n = 1, a segment longer than a staging tile,
+16 slots per id over many block ranges); two of those also go through
+the interpreted kernel, the rest through the reference path only.
+Tolerance rtol and atol 1e-5 (the sums are taken in other orders).
 """
 
 import jax
@@ -29,6 +33,40 @@ def _sparse(rng):
     return rng.normal(size=(16, 2048)).astype(np.float32), gid, n
 
 
+def _edge(ct_rng, gid, n, rows=16):
+    return ct_rng.normal(size=(rows, len(gid))).astype(np.float32), np.asarray(gid, np.int32), n
+
+
+def _no_live(rng):
+    return _edge(rng, np.full(300, 700), 700)  # every id is the sentinel
+
+
+def _near_end(rng):
+    # Live ids only at n - 3 and n - 1: the last block range holds them all.
+    return _edge(rng, [697] * 3 + [699] * 2 + [700] * 40, 700)
+
+
+def _negative_head(rng):
+    gid = np.concatenate([-rng.integers(1, 50, 30), rng.integers(0, 500, 400), np.full(33, 500)])
+    return _edge(rng, np.sort(gid), 500, rows=9)
+
+
+def _n1(rng):
+    return _edge(rng, [0] * 7 + [1] * 4, 1)
+
+
+def _long_segment(rng):
+    # One id holds 5,000 slots, more than a staging tile of the kernel.
+    gid = np.sort(np.concatenate([np.arange(600), np.full(5_000, 300), np.full(21, 600)]))
+    return _edge(rng, gid, 600, rows=9)
+
+
+def _dense16(rng):
+    # 16 slots for every id: each block range of 128 ids spans 2,048 slots.
+    return _edge(rng, np.concatenate([np.repeat(np.arange(2048), 16), np.full(7, 2048)]), 2048,
+                 rows=9)
+
+
 CASES = {
     "small": lambda: (*_case(np.random.default_rng(0), 64, 100, 5), 64),
     "mid": lambda: (*_case(np.random.default_rng(1), 1000, 3000, 16), 1000),
@@ -37,11 +75,21 @@ CASES = {
                       _case(np.random.default_rng(3), 128, 512, 4)[1], 128),
     "sparse": lambda: _sparse(np.random.default_rng(4)),
     "long_segments": lambda: (*_case(np.random.default_rng(5), 40, 2000, 90), 40),
+    "no_live": lambda: _no_live(np.random.default_rng(6)),
+    "near_end": lambda: _near_end(np.random.default_rng(7)),
+    "negative_head": lambda: _negative_head(np.random.default_rng(8)),
+    "n1": lambda: _n1(np.random.default_rng(9)),
+    "long_segment_5000": lambda: _long_segment(np.random.default_rng(10)),
+    "dense16": lambda: _dense16(np.random.default_rng(11)),
 }
+# Edge cases held against the reference path only: the TPU kernel's
+# windows assume ids >= 0, and interpreted calls are kept to two new cases.
+REFERENCE_ONLY = {"no_live", "negative_head", "long_segment_5000", "dense16"}
+PAIRS = [(c, p) for p in ("kernel", "reference") for c in CASES
+         if p == "reference" or c not in REFERENCE_ONLY]
 
 
-@pytest.mark.parametrize("path", ["kernel", "reference"])
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case,path", PAIRS, ids=[f"{c}-{p}" for c, p in PAIRS])
 def test_plain_matches_jax(case, path):
     ct, gid, n = CASES[case]()
     ref = np.asarray(jsegsum(jnp.asarray(ct), jnp.asarray(gid), n,
@@ -49,7 +97,8 @@ def test_plain_matches_jax(case, path):
     got = tss.segment_sum_plain(torch.tensor(ct), torch.tensor(gid), n).numpy()
     assert got.shape == ref.shape == (ct.shape[0], n)
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(got, _naive(ct, gid, n), rtol=1e-5, atol=1e-5)
+    keep = gid >= 0  # _naive keeps ids < n only; negative ids are dropped too
+    np.testing.assert_allclose(got, _naive(ct[:, keep], gid[keep], n), rtol=1e-5, atol=1e-5)
 
 
 def test_segment_sum_sorted_dispatches_to_plain_on_cpu():
@@ -65,6 +114,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     launches = tss.segment_sum_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
         tss.segment_sum_cuda(torch.tensor(ct), torch.tensor(gid), n)
+    assert tss.segment_sum_cuda.launches == launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tss._launch(torch.tensor(ct), torch.tensor(gid), n, torch.empty((ct.shape[0], n)))
     assert tss.segment_sum_cuda.launches == launches
     with pytest.raises(ValueError, match="device"):
         tss.segment_sum_sorted(torch.empty((2, 4), device="meta"),
