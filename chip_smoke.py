@@ -50,8 +50,20 @@ together), then:
    with every tile_count zeroed but the deepest tile's (the serial walk's
    share), each per sub-kernel under torch.profiler, K3 also beside two
    ``index_add_`` calls (dim 1 and dim 0); view 0's segment statistics and
-   the device time of each step of ``GatherDup.backward``; then prints the
-   kernels line, the card line, and last
+   the device time of each step of ``GatherDup.backward``;
+9. coarse SuGaR: KNN (k 16) over the 2^18 training scene and the 1M
+   scene, timed, checked against a float64 ``cdist`` on 4,096 queries each,
+   and on exact duplicate points (lower index first); the field query at
+   full width (1M samples x 16 neighbors of the 1M scene) timed, a
+   65,536-sample slice held against the CPU; ``train_coarse`` in 'sdf'
+   mode from the 2^18 scene (an eighth at low opacity, through
+   ``save_ply``/``load_ply``) over iterations 8991-9010 at the
+   ``CoarseConfig`` widths (entropy, the 9000 KNN refresh, the prune and
+   its KNN, ten SDF steps; K1, K2, K3 once per iteration through 9000 and
+   twice after), its 9000 milestone restored bit-exactly and resumed; five
+   'density' steps (one launch of each kernel per step); the 'sdf' step
+   timed, profiled, its peak memory and the device time of its parts;
+   then prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}`` — only when every check passed.
 
 Each path runs with the launch counts set to 0 just before it and read
@@ -76,8 +88,13 @@ import torch
 
 from sugar_tpu_torch import native
 from sugar_tpu_torch.core.cameras import make_camera
+from sugar_tpu_torch.core.quaternions import normalize as quat_normalize
 from sugar_tpu_torch.core.sh import C0
+from sugar_tpu_torch.fields import density as df
+from sugar_tpu_torch.fields.knn import _sq_dists as knn_sq_dists
+from sugar_tpu_torch.fields.knn import knn
 from sugar_tpu_torch.interop import model_from_numpy, params_from_numpy
+from sugar_tpu_torch.io.datasets import nerfpp_extent
 from sugar_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianParams, load_ply, save_ply
 from sugar_tpu_torch.models.render import render_model, render_params
 from sugar_tpu_torch.raster import adaptive
@@ -98,8 +115,12 @@ from sugar_tpu_torch.raster.tile_composite import (
     tile_composite_cuda,
     tile_composite_plain,
 )
+from sugar_tpu_torch.trainers import coarse as coarse_mod
 from sugar_tpu_torch.trainers import optimizer as opt
+from sugar_tpu_torch.trainers.coarse import CoarseConfig, make_coarse_step, train_coarse
+from sugar_tpu_torch.trainers.schedule import iteration_generator
 from sugar_tpu_torch.trainers.vanilla import TrainConfig, make_train_step, train_vanilla_3dgs
+from sugar_tpu_torch.utils import checkpoint as ckpt
 from sugar_tpu_torch.utils.losses import psnr
 
 KERNELS = (tile_composite_cuda, tile_composite_bwd_cuda, segment_sum_cuda)
@@ -1112,7 +1133,469 @@ def phase_train(check, dev, cams) -> dict:
     k3_in_step = [(ms, calls) for k, ms, calls in ranked if "segment_sum" in k]
     return dict(step_ms=statistics.median(step_ms), step_ms_all=step_ms, caps=caps,
                 wall_ms=wall_ms, busy_ms=busy_ms, top=top, launches=train_counts,
-                k3_in_step=k3_in_step)
+                k3_in_step=k3_in_step, targets=targets)
+
+
+# --- [9] coarse SuGaR ---------------------------------------------------
+
+# The coarse window: CoarseConfig's defaults (1M samples, K 16, KNN reset
+# every 500, prune at 9000, SDF from 9001) over iterations 8991-9010.
+COARSE_START, COARSE_END = 8_990, 9_010
+COARSE_MILESTONE = 9_000
+DENSITY_STEPS = 5
+KNN_CHECK_QUERIES = 4096
+FIELD_SLICE = 65_536
+# Field query, card against CPU on a 65,536-sample slice: values rtol
+# FIELD_RTOL (atol FIELD_RTOL x max|value|: sdf's sqrt(-2 ln d) turns the
+# last bit of exp into more near the density ceiling), gradients within
+# FIELD_GRAD_RTOL x max|g| per parameter.
+FIELD_RTOL = 1e-5
+FIELD_GRAD_RTOL = 1e-4
+
+
+def knn_tol(q_sq: torch.Tensor) -> torch.Tensor:
+    """Bound on the float32 formula's error, ||q||^2 - 2 q.r + ||r||^2
+    with ~5 roundings on terms up to ~4 ||q||^2 for a near neighbor:
+    2^-19 (1 + ||q||^2)."""
+    return 2.0**-19 * (1.0 + q_sq)
+
+
+def check_knn(check, label: str, xyz: torch.Tensor, alive: torch.Tensor, d: torch.Tensor,
+              idx: torch.Tensor, k: int, seed: int) -> dict:
+    """KNN on the card against a float64 cdist and a sorted top-(k+1) on the
+    card, for KNN_CHECK_QUERIES random queries at alive Gaussians: each
+    returned distance is its pair's (within knn_tol), each j-th returned
+    neighbor is at the exact j-th distance (within 2 knn_tol), and the
+    index sets are equal on every row whose exact k-th and (k+1)-th
+    distances differ by more than twice the float32 formula's error on
+    that row's k + 1 reference neighbors (the formula, evaluated on the
+    card, cannot reorder them)."""
+    g = torch.Generator(device=xyz.device).manual_seed(seed)
+    cand = alive.nonzero()[:, 0]  # queries at alive Gaussians, as the coarse stage reads them
+    rows = cand[torch.randint(0, cand.numel(), (KNN_CHECK_QUERIES,), generator=g,
+                              device=xyz.device)]
+    refs64 = xyz.double()
+    errs = dict(pair=0.0, rank=0.0)
+    same_sets = checked = 0
+    dead_returned = 0
+    for c0 in range(0, KNN_CHECK_QUERIES, 256):
+        r = rows[c0:c0 + 256]
+        q64 = refs64[r]
+        ex = torch.cdist(q64, refs64, compute_mode="donot_use_mm_for_euclid_dist") ** 2
+        ex = ex.masked_fill(~alive[None, :], float("inf"))
+        top_d, top_i = torch.topk(ex, k + 1, dim=1, largest=False, sorted=True)
+        tol = knn_tol((q64 * q64).sum(-1))
+        got_d, got_i = d[r].double(), idx[r]
+        pair = ex.gather(1, got_i)
+        errs["pair"] = max(errs["pair"], float(((got_d - pair).abs() / tol[:, None]).max()))
+        errs["rank"] = max(errs["rank"], float(((pair - top_d[:, :k]).abs() / tol[:, None]).max()))
+        dead_returned += int((~alive[got_i]).sum())
+        # The float32 formula on each row's k + 1 reference neighbors.
+        q32, r32 = xyz[r][:, None, :], xyz[top_i]
+        dot = q32[..., 0] * r32[..., 0]
+        dot.addcmul_(q32[..., 1], r32[..., 1])
+        dot.addcmul_(q32[..., 2], r32[..., 2])
+        f32 = torch.sub((q32 * q32).sum(-1), dot, alpha=2.0).add_((r32 * r32).sum(-1))
+        row_err = (f32.double() - top_d).abs().max(dim=1).values
+        clear = (top_d[:, k] - top_d[:, k - 1]) > 2 * row_err
+        a = torch.sort(got_i[clear], dim=1).values
+        b = torch.sort(top_i[clear, :k], dim=1).values
+        same_sets += int((a == b).all(dim=1).sum())
+        checked += int(clear.sum())
+        del ex
+    out = dict(queries=KNN_CHECK_QUERIES, pair_err_over_tol=errs["pair"],
+               rank_err_over_tol=errs["rank"], gap_rows=checked, gap_rows_equal=same_sets,
+               dead_returned=dead_returned)
+    print(f"[9] KNN vs float64 cdist + sorted top-(k+1), {label}: {json.dumps(out)}")
+    check(errs["pair"] <= 1.0 and errs["rank"] <= 2.0 and dead_returned == 0,
+          f"KNN {label}: distances within the float32 bound of the float64 reference")
+    check(same_sets == checked and checked > 0,
+          f"KNN {label}: index sets equal wherever the k-th/(k+1)-th gap exceeds twice the "
+          f"float32 error")
+    return out
+
+
+def check_knn_ties(check, dev) -> None:
+    """Exact duplicates on the card: small chunks (many blocks, duplicate
+    groups across block boundaries) give the stable-sorted lexicographic
+    top-k of the full distance matrix, lower index first among equals."""
+    g = np.random.default_rng(21)
+    base = g.uniform(-1, 1, (3000, 3)).astype(np.float32)
+    pts = torch.as_tensor(np.concatenate([base, base[:900], base[500:1400],
+                                          np.repeat(base[7:8], 40, 0)]), device=dev)
+    mask = torch.as_tensor(g.uniform(size=len(pts)) > 0.1, device=dev)
+    k = 16
+    d, i = knn(pts, pts, k, mask, q_chunk=128, r_chunk=300)
+    full = knn_sq_dists(pts, (pts * pts).sum(-1, keepdim=True), torch.where(mask[:, None], pts, 0.0),
+                        torch.where(mask, (pts * pts).sum(-1), float("inf")))
+    ref_d, ref_i = torch.sort(full, dim=1, stable=True)
+    ok_i = torch.equal(i, ref_i[:, :k])
+    ok_d = torch.equal(d, torch.clamp_min(ref_d[:, :k], 0.0))
+    ties = int((d[:, 1:] == d[:, :-1]).sum())
+    print(f"[9] KNN exact duplicates ({len(pts)} points, q_chunk 128, r_chunk 300): "
+          f"{ties} equal-distance neighbor pairs; indices equal to the stable sort {ok_i}, "
+          f"distances {ok_d}")
+    check(ok_i and ok_d and ties > 1000, "KNN on the card lists the lower index first among "
+          "equal distances, independent of the chunks")
+
+
+def cuda_once_ms(fn):
+    """(result, ms) of one fn() call by CUDA events."""
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    r = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return r, e0.elapsed_time(e1)
+
+
+def field_leaves(model):
+    """The activated field params of a model as fresh leaves."""
+    return df.GaussianFieldParams(
+        model.params.xyz.detach().clone().requires_grad_(True),
+        model.scales.detach().clone().requires_grad_(True),
+        model.quaternions.detach().clone().requires_grad_(True),
+        model.opacities.detach().clone().requires_grad_(True),
+    )
+
+
+def field_loss(gp, draw, nidx_table, alive, n):
+    """sum(sdf) + sum(density) of the coarse SDF query at n samples."""
+    samples, src = df.sample_points_in_gaussians(draw, n, gp, alive, sampling_scale_factor=1.5,
+                                                 prob_proportional_to_volume=False)
+    out = df.field_values(samples, nidx_table[src], gp, density_factor=1.0 / 16.0)
+    return out, (out["sdf"].sum() + out["density"].sum())
+
+
+def phase_field(check, dev, model, knn_idx) -> dict:
+    """The coarse field query at full width (1M samples x 16 neighbors on
+    the 1M SH-3 scene) timed on the card, and a 65,536-sample slice of it
+    held against the CPU."""
+    n = CoarseConfig().n_samples_for_sdf_regularization
+    gp = field_leaves(model)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():
+        idx = torch.multinomial(model.alive.float(), n, replacement=True, generator=gen)
+        noise = torch.randn((n, 3), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, loss = field_loss(gp, (idx, noise), knn_idx, model.alive, n)
+    g_card = torch.autograd.grad(loss, list(gp))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del loss
+    fwd_ms = cuda_ms(lambda: field_loss(gp, (idx, noise), knn_idx, model.alive, n), reps=5)
+    bwd = []
+    for _ in range(5):
+        _, l5 = field_loss(gp, (idx, noise), knn_idx, model.alive, n)
+        _, ms = cuda_once_ms(lambda: torch.autograd.grad(l5, list(gp)))
+        bwd.append(ms)
+    # The slice: the same draw on the card and on the CPU.
+    sl = slice(0, FIELD_SLICE)
+    out_s, loss_s = field_loss(gp, (idx[sl], noise[sl]), knn_idx, model.alive, FIELD_SLICE)
+    g_s = [x.cpu() for x in torch.autograd.grad(loss_s, list(gp))]
+    gp_cpu = df.GaussianFieldParams(*(x.detach().cpu().requires_grad_(True) for x in gp))
+    out_c, loss_c = field_loss(gp_cpu, (idx[sl].cpu(), noise[sl].cpu()), knn_idx.cpu(),
+                               model.alive.cpu(), FIELD_SLICE)
+    g_c = torch.autograd.grad(loss_c, list(gp_cpu))
+    val_ok, rows = True, {}
+    for key in ("density", "sdf"):
+        a, b = out_s[key].detach().cpu(), out_c[key].detach()
+        err = float((a - b).abs().max())
+        rows[key] = err
+        val_ok &= bool(((a - b).abs() <= FIELD_RTOL * (b.abs() + b.abs().max())).all())
+    grad_ok = True
+    for name, a, b in zip(df.GaussianFieldParams._fields, g_s, g_c):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        rows[f"d_{name}"] = (err, scale)
+        grad_ok &= err <= FIELD_GRAD_RTOL * scale and scale > 0
+    print(f"[9] field query card vs CPU, {FIELD_SLICE} samples x 16 neighbors of the 1M SH-3 "
+          f"scene: {json.dumps(rows)}")
+    check(val_ok, f"field query density and sdf on the card within rtol {FIELD_RTOL} of the CPU's")
+    check(grad_ok, f"field query gradients on the card within {FIELD_GRAD_RTOL} x max|g| of the CPU's")
+    finite = all(bool(torch.isfinite(x).all()) for x in (*out.values(), *g_card))
+    check(finite and tuple(out["sdf"].shape) == (n,), "field query at full width finite, (1M,)")
+    res = dict(fwd_ms=fwd_ms, bwd_ms=statistics.median(bwd), peak_gb=peak / 1e9)
+    print(f"[9] field query at full width ({n} samples x 16 neighbors, 1M SH-3 scene): forward "
+          f"{res['fwd_ms']:.3f} ms (mean of 5, sampling included), backward "
+          f"{res['bwd_ms']:.3f} ms (median of 5), peak memory of one forward + backward above "
+          f"the model {res['peak_gb']:.3f} GB")
+    return res
+
+
+def coarse_model(dev):
+    """The coarse stage's start: the 2^18 training scene at SH degree 3
+    (zero higher coefficients: the renders equal the SH-0 targets' colors),
+    a seeded eighth of its Gaussians at opacity U(0.05, 0.45) so the prune
+    removes them, through save_ply and load_ply(device="cuda") into
+    327,680 slots, as the pipeline starts from the vanilla model's PLY."""
+    fields = train_scene_fields(TRAIN_N, TRAIN_SEED)
+    g = np.random.default_rng(TRAIN_SEED + 5)
+    low = g.choice(TRAIN_N, TRAIN_N // 8, replace=False)
+    op = g.uniform(0.05, 0.45, low.size)
+    fields["opacity_logit"][low] = np.log(op / (1 - op)).astype(np.float32)
+    fields["sh_rest"] = np.zeros((TRAIN_N, 3, 15), np.float32)
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "coarse_start.ply")
+    save_ply(model_from_numpy(fields, np.ones(TRAIN_N, bool), 3, device="cpu"), path)
+    model = load_ply(path, capacity=TRAIN_CAPACITY, device=dev)
+    os.remove(path)
+    return model, low
+
+
+def phase_coarse(check, dev, cams, targets) -> dict:
+    """train_coarse in 'sdf' mode over the window around the prune, its
+    milestone and resume, five 'density' steps, then the step timed and
+    profiled."""
+    model, low = coarse_model(dev)
+    extent = nerfpp_extent(np.stack([c.cam_center.cpu().numpy() for c in cams]))
+    cfg = CoarseConfig(start_iteration=COARSE_START, num_iterations=COARSE_END,
+                       checkpoint_iterations=(COARSE_MILESTONE,), log_every=1)
+    ckpt_dir = os.path.join(WORK, "coarse_milestones")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    saved = {}
+    save_milestone = coarse_mod.ckpt.save_milestone
+
+    def recording_save(base, it, state):  # keep the saved state to hold the restore to
+        saved.update(it=it, state={k: v for k, v in state.items()})
+        return save_milestone(base, it, state)
+
+    logs, per_iter = [], []
+
+    def log(r):
+        logs.append(r)
+        if "loss" in r:
+            per_iter.append((r["iter"], launches()))
+
+    coarse_mod.ckpt.save_milestone = recording_save
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_coarse(model, cams, targets, extent, cfg, seed=0, log_fn=log,
+                           checkpoint_dir=ckpt_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        coarse_mod.ckpt.save_milestone = save_milestone
+    steps = [r for r in logs if "loss" in r]
+    knn_builds = [r["iter"] for r in logs if r.get("event") == "knn"]
+    grows = [r for r in logs if r.get("event") == "cap_grow"]
+    deltas, prev = {}, (0, 0, 0)
+    for it, c in per_iter:
+        deltas[it] = tuple(a - b for a, b in zip(c, prev))
+        prev = c
+    print(f"[9] train_coarse 'sdf', {TRAIN_N} Gaussians ({low.size} at low opacity) in "
+          f"{TRAIN_CAPACITY} slots, iterations {COARSE_START + 1}-{COARSE_END}, extent "
+          f"{extent:.4f}: {wall:.2f} s wall; KNN builds at {knn_builds}; cap growths to "
+          f"(k_max, tile_cap, dup_capacity) "
+          f"{[(r['new']['k_max'], r['new']['tile_cap'], r['new']['dup_capacity']) for r in grows]}")
+    for r in steps:
+        print(f"    iter {r['iter']}: loss {r['loss']:.6f}, psnr {r['psnr']:.3f}, n_alive "
+              f"{r['n_alive']}, launches (K1, K2, K3) {deltas[r['iter']]}, overflow "
+              f"{[r.get(k, 0) for k in ('bin_overflow', 'big_overflow', 'cap_overflow', 'tile_overflow')]}")
+    n_alive = {r["iter"]: r["n_alive"] for r in steps}
+    check(len(steps) == COARSE_END - COARSE_START and all(math.isfinite(r["loss"]) for r in steps),
+          "coarse: every loss finite")
+    check(n_alive[COARSE_MILESTONE] < n_alive[COARSE_MILESTONE - 1] == TRAIN_N,
+          "coarse: n_alive drops at the prune (iteration 9000)")
+    check(knn_builds == [COARSE_START + 1, COARSE_MILESTONE, COARSE_MILESTONE],
+          "coarse: three KNN builds (first step, the 9000 refresh, after the prune)")
+    want = {it: (1, 1, 1) if it <= COARSE_MILESTONE else (2, 2, 2) for it in deltas}
+    check(deltas == want, "coarse: one launch of K1, K2, K3 per iteration through 9000, two after")
+    # Each new view may overflow once (a lagged growth follows); after the
+    # first pass over the 8 views and the lag, the caps cover every view.
+    ovf_iters = [r["iter"] for r in steps if any(r.get(k, 0) for k in (
+        "bin_overflow", "big_overflow", "cap_overflow", "tile_overflow"))]
+    check(len(grows) >= 1 and all(it <= COARSE_MILESTONE for it in ovf_iters),
+          f"coarse: caps grew, and overflow is 0 from iteration {COARSE_MILESTONE + 1} on "
+          f"(overflows at {ovf_iters})")
+    check(all(bool(torch.isfinite(getattr(out.params, f)).all()) for f in PARAM_FIELDS),
+          "coarse: params finite")
+
+    # Resume from the milestone: the restored state is the saved one, bit
+    # for bit, and the run finishes.
+    like = dict(params=out.params, alive=out.alive, adam=opt.init_adam(out.params),
+                knn_idx=torch.zeros((TRAIN_CAPACITY, 16), dtype=torch.int64, device=dev),
+                iteration=0)
+    st = ckpt.restore_structured(ckpt.milestone_path(ckpt_dir, COARSE_MILESTONE), like)
+    ref = ckpt._flatten(saved["state"])
+    got = ckpt._flatten(st)
+    exact = saved["it"] == COARSE_MILESTONE and ref.keys() == got.keys() and all(
+        np.array_equal(ref[k], got[k]) for k in ref)
+    rlogs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = train_coarse(model, cams, targets, extent, cfg, seed=0, log_fn=rlogs.append,
+                           checkpoint_dir=ckpt_dir)
+    torch.cuda.synchronize()
+    resume_wall = time.perf_counter() - t0
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rsteps = [r for r in rlogs if "loss" in r]
+    diff = max(float((getattr(resumed.params, f) - getattr(out.params, f)).abs().max())
+               for f in PARAM_FIELDS if getattr(out.params, f).numel())
+    print(f"[9] resume from milestone {COARSE_MILESTONE}: {len(ref)} arrays restored "
+          f"bit-exact {exact}; {len(rsteps)} iterations in {resume_wall:.2f} s, KNN builds "
+          f"{[r['iter'] for r in rlogs if r.get('event') == 'knn']}; final params max |resumed - "
+          f"uninterrupted| {diff:.3e} (the resumed run regrows its raster caps from the defaults, "
+          f"as the JAX trainer does, and the card's scatter-adds sum in any order)")
+    check(exact, "coarse: the milestone restores the saved state bit-exactly on the card")
+    check({"event": "resume", "iteration": COARSE_MILESTONE} in rlogs
+          and len(rsteps) == COARSE_END - COARSE_MILESTONE
+          and all(math.isfinite(r["loss"]) for r in rsteps)
+          and torch.equal(resumed.alive, out.alive),
+          "coarse: the resumed run starts at 9000, finishes finite, same alive mask")
+
+    # 'density' mode: one launch of each kernel per SDF-phase step.
+    dlogs, dper = [], []
+
+    def dlog(r):
+        dlogs.append(r)
+        if "loss" in r:
+            dper.append(launches())
+
+    dcfg = CoarseConfig(mode="density", start_iteration=COARSE_MILESTONE,
+                        num_iterations=COARSE_MILESTONE + DENSITY_STEPS, log_every=1)
+    reset_launches()
+    dense = train_coarse(out, cams, targets, extent, dcfg, seed=0, log_fn=dlog)
+    torch.cuda.synchronize()
+    dd = [tuple(a - b for a, b in zip(c, p)) for c, p in zip(dper, [(0, 0, 0)] + dper[:-1])]
+    dsteps = [r for r in dlogs if "loss" in r]
+    print(f"[9] train_coarse 'density', {DENSITY_STEPS} SDF-phase steps: losses "
+          f"{[round(r['loss'], 6) for r in dsteps]}; launches per step {dd}")
+    check(dd == [(1, 1, 1)] * DENSITY_STEPS and all(math.isfinite(r["loss"]) for r in dsteps)
+          and all(bool(torch.isfinite(getattr(dense.params, f)).all()) for f in PARAM_FIELDS),
+          "coarse 'density': one launch of each kernel per step (no depth render), finite")
+    return dict(model=out, extent=extent, cfg=cfg, wall_s=wall, resume_s=resume_wall)
+
+
+def time_coarse_step(check, dev, cams, targets, state) -> dict:
+    """The 'sdf' step at full width: 10 steps by CUDA events, one under the
+    profiler, its peak memory, and the device time of its parts."""
+    cfg, model = state["cfg"], state["model"]
+    lrs = opt.group_lrs(cfg.optim, spatial_lr_scale=state["extent"])
+    params, alive = model.params, model.alive
+    (_, knn_idx), knn_ms = cuda_once_ms(lambda: knn(params.xyz, params.xyz, 16, alive))
+    adam = opt.init_adam(params)
+    caps = adaptive.RasterCaps(tile_cap=16, dup_capacity=cfg.dup_capacity_mult * TRAIN_CAPACITY,
+                               k_max=cfg.k_max)
+    it = COARSE_END
+    for _ in range(4):  # the trainer's growth rule, until no view's step drops anything
+        grew = False
+        for cam, target in zip(cams, targets):
+            step = make_coarse_step(cfg, lrs, state["extent"], TRAIN_CAPACITY, False, True, caps)
+            _, _, aux = step(params, alive, adam, knn_idx, cam, target, it,
+                             iteration_generator(0, it, dev))
+            ovf = adaptive.read_overflow(aux)
+            if adaptive.overflowed(ovf):
+                caps, grew = caps.grown(ovf), True
+        if not grew:
+            break
+    ms, auxes = [], []
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for i in range(TIMED_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, adam, aux = step(params, alive, adam, knn_idx, cams[i % len(cams)],
+                                 targets[i % len(cams)], it + i, iteration_generator(0, it + i, dev))
+        e1.record()
+        ms.append((e0, e1))
+        auxes.append(aux)
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in ms]
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = launches()
+    check(counts == (2 * TIMED_STEPS,) * 3, "timed 'sdf' steps: two launches of each kernel per step")
+    check(all(not adaptive.overflowed(adaptive.read_overflow(a)) for a in auxes)
+          and all(math.isfinite(float(a["loss"])) for a in auxes),
+          "timed 'sdf' steps: overflow 0, losses finite")
+    wall_ms, busy_ms, ranked = profile_device(
+        lambda: step(params, alive, adam, knn_idx, cams[0], targets[0], it,
+                     iteration_generator(0, it, dev)), top=None)
+
+    # The parts, each profiled alone on the step's inputs.
+    leaves = [getattr(params, f).detach().requires_grad_(True) for f in PARAM_FIELDS]
+    p = GaussianParams(**dict(zip(PARAM_FIELDS, leaves)))
+    bg = torch.zeros(3, device=dev)
+    kw = dict(dup_capacity=caps.dup_capacity, k_max=caps.k_max, tile_cap=caps.tile_cap,
+              cap_a=caps.cap_a, big_cap=caps.big_cap)
+
+    def rgb():
+        img = render_params(p, alive, cams[0], cfg.sh_degree, bg, **kw)["image"]
+        return torch.autograd.grad(img.sum(), leaves, allow_unused=True)
+
+    def depth():
+        zs = p.xyz @ cams[0].world_view[2, :3] + cams[0].world_view[2, 3]
+        img = coarse_mod._render_depth(p, alive, cams[0], zs, torch.where(alive, zs, 0.0).amax(),
+                                       **kw)
+        return torch.autograd.grad(img.sum(), leaves, allow_unused=True)
+
+    gp = df.GaussianFieldParams(p.xyz, torch.exp(p.log_scales), quat_normalize(p.quaternions),
+                                torch.sigmoid(p.opacity_logit))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n = cfg.n_samples_for_sdf_regularization
+    samples, src = df.sample_points_in_gaussians(gen, n, gp, alive, sampling_scale_factor=1.5,
+                                                 prob_proportional_to_volume=False)
+    nidx = knn_idx[src]
+    holder = {}
+
+    def field_fwd():
+        holder["out"] = df.field_values(samples, nidx, gp, density_factor=cfg.density_factor)
+
+    field_fwd()
+    parts = {}
+    parts["RGB render fwd+bwd"] = profile_device(rgb, top=None)[1]
+    parts["depth render fwd+bwd"] = profile_device(depth, top=None)[1]
+    parts["field query fwd"] = profile_device(field_fwd, top=None)[1]
+    parts["field query bwd"] = profile_device(
+        lambda: torch.autograd.grad(holder["out"]["sdf"].sum(), leaves, retain_graph=True,
+                                    allow_unused=True), top=None)[1]
+    normals = df.smallest_axes(gp.scales, gp.quaternions)
+
+    def better_normal():
+        bn = coarse_mod._better_normal_loss(samples, src, nidx, gp, normals, cfg.density_factor)
+        return torch.autograd.grad(bn, leaves, retain_graph=True, allow_unused=True)
+
+    parts["better-normal fwd+bwd"] = profile_device(better_normal, top=None)[1]
+    print(f"[9] coarse 'sdf' step at full width ({TRAIN_CAPACITY} slots, "
+          f"{int(alive.sum())} alive, {n} samples x 16 neighbors): median "
+          f"{statistics.median(step_ms):.3f} ms of {TIMED_STEPS} "
+          f"({', '.join(f'{v:.3f}' for v in step_ms)}); launches (K1, K2, K3) {counts} over "
+          f"{TIMED_STEPS} steps; peak memory above the state {peak / 1e9:.3f} GB; caps {caps}")
+    print(f"    under torch.profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle "
+          f"share {1.0 - busy_ms / wall_ms:.3f}; {len(ranked)} distinct kernels, "
+          f"{sum(c for _, _, c in ranked)} launches")
+    for name, t_ms, calls in ranked[:12]:
+        print(f"      {t_ms:8.3f} ms  {calls:4d}x  {name[:100]}")
+    print("    device busy ms of the parts, each profiled alone: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    print(f"    KNN of the post-prune state ({TRAIN_CAPACITY} queries and refs): {knn_ms:.1f} ms")
+    return dict(step_ms=statistics.median(step_ms), busy_ms=busy_ms, wall_ms=wall_ms,
+                peak_gb=peak / 1e9, parts=parts, knn_post_ms=knn_ms)
+
+
+def phase_knn(check, dev, serve_model) -> dict:
+    """KNN (k 16) on the card over the 2^18 training scene (327,680 slots)
+    and the 1M serving scene, timed by CUDA events, checked against float64
+    references; and the duplicate-point case."""
+    fields, alive = pad_fields(train_scene_fields(TRAIN_N, TRAIN_SEED), TRAIN_CAPACITY)
+    xyz = torch.as_tensor(fields["xyz"], device=dev)
+    alive_t = torch.as_tensor(alive, device=dev)
+    (d_t, i_t), ms_t = cuda_once_ms(lambda: knn(xyz, xyz, 16, alive_t))
+    (d_s, i_s), ms_s = cuda_once_ms(lambda: knn(serve_model.params.xyz, serve_model.params.xyz, 16,
+                                                serve_model.alive))
+    print(f"[9] KNN (k 16, q_chunk 4096, r_chunk 16384) on {card_line()}: 2^18 scene "
+          f"({TRAIN_CAPACITY} queries and refs, {TRAIN_N} alive) {ms_t:.1f} ms; 1M scene "
+          f"{ms_s:.1f} ms")
+    check_knn(check, "2^18 scene", xyz, alive_t, d_t, i_t, 16, seed=1)
+    check_knn(check, "1M scene", serve_model.params.xyz, serve_model.alive, d_s, i_s, 16, seed=2)
+    check_knn_ties(check, dev)
+    return dict(ms_train=ms_t, ms_serve=ms_s, serve_idx=i_s)
 
 
 def main() -> int:
@@ -1380,6 +1863,19 @@ def main() -> int:
     wall_ms, busy_ms, _ = profile_device(lambda: render_model(model, cams[0], **kw0))
     print(f"    view 0 under torch.profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1.0 - busy_ms / wall_ms:.3f}")
+
+    # [9] coarse SuGaR: KNN, the field query, train_coarse, the step timed.
+    kn = phase_knn(check, dev, model)
+    fq = phase_field(check, dev, model, kn.pop("serve_idx"))
+    co = phase_coarse(check, dev, cams, tr["targets"])
+    cs = time_coarse_step(check, dev, cams, tr["targets"], co)
+    print(f"[9] coarse summary on {card}: KNN 2^18 {kn['ms_train']:.1f} ms, 1M "
+          f"{kn['ms_serve']:.1f} ms; field query 1M x 16 fwd {fq['fwd_ms']:.3f} ms, bwd "
+          f"{fq['bwd_ms']:.3f} ms, peak {fq['peak_gb']:.3f} GB; 'sdf' step median "
+          f"{cs['step_ms']:.3f} ms, device busy {cs['busy_ms']:.3f} ms of {cs['wall_ms']:.3f} ms "
+          f"profiled (idle share {1.0 - cs['busy_ms'] / cs['wall_ms']:.3f}), peak "
+          f"{cs['peak_gb']:.3f} GB; train_coarse window {co['wall_s']:.2f} s, resume "
+          f"{co['resume_s']:.2f} s")
 
     k1n, k2n, k3n = tr["launches"]
     kernels = [

@@ -3,8 +3,9 @@
 The JAX package's ``GaussianParams`` fields, as numpy arrays (for example
 ``{f: np.asarray(getattr(params, f)) for f in PARAM_FIELDS}``), become the
 port's tensors; nothing is converted in value. Its optimizer state
-(``AdamState``: mu, nu, count) and densify statistics (``DensifyStats``)
-cross the same way, so a training run can move between the packages. The PLY format is the other
+(``AdamState``: mu, nu, count, at any iteration), densify statistics
+(``DensifyStats``) and the coarse stage's KNN table cross the same way, so
+a training run can move between the packages. The PLY format is the other
 route (``models.gaussians.load_ply`` reads files the JAX package wrote).
 """
 
@@ -74,3 +75,9 @@ def stats_from_numpy(
     """DensifyStats from its three (N,) float32 arrays."""
     t = lambda x: torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32), device=device)  # noqa: E731
     return DensifyStats(grad_accum=t(grad_accum), denom=t(denom), max_radii=t(max_radii))
+
+
+def knn_table_from_numpy(idx: np.ndarray, device: str | torch.device = "cuda") -> torch.Tensor:
+    """The coarse stage's (N, K) neighbor table (the JAX package keeps it
+    int32) as the port's int64 index tensor."""
+    return torch.as_tensor(np.asarray(idx, dtype=np.int64), device=device)

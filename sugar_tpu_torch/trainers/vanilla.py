@@ -35,6 +35,7 @@ from sugar_tpu_torch.raster import adaptive
 from sugar_tpu_torch.raster.common import clip
 from sugar_tpu_torch.trainers import optimizer as opt
 from sugar_tpu_torch.trainers.schedule import CameraSchedule, iteration_generator
+from sugar_tpu_torch.utils import checkpoint as ckpt
 from sugar_tpu_torch.utils import losses
 
 _LOGGED_OVERFLOW = ("bin_overflow", "big_overflow", "cap_overflow", "tile_overflow")
@@ -62,6 +63,10 @@ class TrainConfig:
     render_mode: str = "auto"
     optim: opt.OptimConfig = dataclasses.field(default_factory=opt.OptimConfig)
     log_every: int = 200
+    # Milestone checkpoint iterations (reference saves at 7000/30000,
+    # gaussian_splatting/train.py --save_iterations). Active only when a
+    # checkpoint_dir is passed to the trainer.
+    checkpoint_iterations: tuple = (7_000,)
 
 
 def make_train_step(
@@ -131,6 +136,7 @@ def train_vanilla_3dgs(
     start_iteration: int = 0,
     model: GaussianModel | None = None,
     checkpoint_dir: str | None = None,
+    resume: bool = True,
     network_gui=None,
     device: str | torch.device = "cuda",
 ) -> TrainerState:
@@ -139,16 +145,16 @@ def train_vanilla_3dgs(
     ``scene_images`` are (H, W, 3) float arrays or tensors. The caller's
     model is not modified.
 
-    Not ported yet (ROADMAP.md): ``checkpoint_dir`` milestones and resume
-    (the JAX package's ``resume`` and ``cfg.checkpoint_iterations``), and
-    the ``network_gui`` viewer (``source_path``); passing either raises.
-    The JAX signature's unused ``eval_cameras``/``eval_images`` are left
-    out."""
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoint_dir is not ported to sugar_tpu_torch yet; see ROADMAP.md "
-            "(queue 1, slice 2, item 5: utils/checkpoint.py)"
-        )
+    With ``checkpoint_dir``, training state (params, alive, Adam, densify
+    stats, iteration) is saved at ``cfg.checkpoint_iterations`` milestones;
+    when ``resume`` and a milestone exists, training restarts from the
+    latest one and replays the camera order and per-iteration draws of the
+    uninterrupted run (bit-exact on the CPU; on CUDA the backward's
+    scatter-adds sum in any order).
+
+    Not ported yet (ROADMAP.md): the ``network_gui`` viewer
+    (``source_path``); passing it raises. The JAX signature's unused
+    ``eval_cameras``/``eval_images`` are left out."""
     if network_gui is not None:
         raise NotImplementedError(
             "network_gui is not ported to sugar_tpu_torch yet; see ROADMAP.md "
@@ -162,6 +168,16 @@ def train_vanilla_3dgs(
     adam = opt.init_adam(params)
     stats = dens.DensifyStats.zeros(model.capacity, device=dev)
     lrs = opt.group_lrs(cfg.optim, spatial_lr_scale=extent)
+    if checkpoint_dir and resume:
+        latest = ckpt.latest_milestone(checkpoint_dir, before=cfg.iterations)
+        if latest is not None and latest > start_iteration:
+            like = dict(params=params, alive=alive, adam=adam, stats=stats, iteration=0)
+            st = ckpt.restore_structured(ckpt.milestone_path(checkpoint_dir, latest), like)
+            params, alive = st["params"], st["alive"]
+            adam, stats = st["adam"], st["stats"]
+            start_iteration = st["iteration"]
+            if log_fn:
+                log_fn({"event": "resume", "iteration": start_iteration})
     # Lag-checked capacity auto-grow (raster.adaptive): an overflowing step
     # renders a degraded frame, a later step runs with grown caps.
     cap_state = adaptive.CapState(
@@ -226,6 +242,12 @@ def train_vanilla_3dgs(
             params = model.params
             if log_fn:
                 log_fn({"iter": it1, "event": "opacity_reset"})
+
+        if checkpoint_dir and it1 in cfg.checkpoint_iterations:
+            ckpt.save_milestone(
+                checkpoint_dir, it1,
+                dict(params=params, alive=alive, adam=adam, stats=stats, iteration=it1),
+            )
 
         if log_fn and (it1 % cfg.log_every == 0 or it1 == cfg.iterations):
             ovf = adaptive.read_overflow(aux)

@@ -41,7 +41,9 @@ def test_port_has_the_slice_modules():
               "raster.adaptive", "io.ply", "models.gaussians", "models.render",
               "utils.losses", "interop", "native", "raster.segsum",
               "trainers.optimizer", "trainers.schedule", "trainers.vanilla",
-              "models.densifier"):
+              "models.densifier", "utils.checkpoint", "io.colmap", "io.datasets",
+              "fields.knn", "fields.density", "fields.regularizers", "fields.normals",
+              "trainers.coarse"):
         assert f"sugar_tpu_torch.{m}" in mods, m
 
 
@@ -64,10 +66,14 @@ def test_imports_without_jax_or_sugar_tpu():
 
 
 def test_importing_builds_nothing():
-    """The kernel libraries are built on first use, not at import."""
+    """The kernel libraries are built on first use, not at import, and the
+    scene loaders import Pillow only when they read an image."""
     code = (
+        "import sys\n"
         "import sugar_tpu_torch.raster.tile_composite as t, sugar_tpu_torch.native as n\n"
-        "import sugar_tpu_torch.raster.segsum as s, sugar_tpu_torch.trainers.vanilla\n"
+        "import sugar_tpu_torch.raster.segsum as s, sugar_tpu_torch.trainers.coarse\n"
+        "import sugar_tpu_torch.io.datasets\n"
+        "assert 'PIL' not in sys.modules\n"
         "assert n._libs == {}\n"
         "assert t.tile_composite_cuda.launches == 0\n"
         "assert t.tile_composite_bwd_cuda.launches == 0\n"
