@@ -63,8 +63,24 @@ together), then:
    twice after), its 9000 milestone restored bit-exactly and resumed; five
    'density' steps (one launch of each kernel per step); the 'sdf' step
    timed, profiled, its peak memory and the device time of its parts;
-   then prints the kernels line, the card line, and last
-   ``{"ok": true, "device": {...}}`` — only when every check passed.
+10. coarse mesh extraction: the level set of one camera of a small scene
+   on the card against the CPU; ``extract_mesh_from_coarse_model`` with
+   ``ExtractConfig``'s defaults on the pruned model that 9 ends with, over
+   the 8 ring cameras at 512x512: per camera the device ms of the depth
+   render (one K1 launch), KNN, field query, gradient and the rest, the
+   valid pixels and the depth render's overflow counters (the reference's
+   fixed caps drop splats; the worst camera is run again at a k_max that
+   covers its deepest tile), the host ms of each meshing step, the mesh
+   PLY loaded back, and QEM decimation of the mesh to a fifth;
+11. refinement: one refine step's vertex gradient on a small mesh, card
+   against CPU; ``refined_training`` with ``RefineConfig``'s defaults on
+   the mesh of 10 against the ring images of 7 for 20 iterations (K1, K2,
+   K3 once per iteration, the loss over the views falls), its milestone
+   restored bit-exactly and resumed; 10 refine steps at SH degree 3 timed
+   and one profiled; the refined PLY rendered back through ``load_ply``;
+   then prints the kernels line (launches summed over 7, 10 and 11), the
+   card line, and last ``{"ok": true, "device": {...}}`` — only when every
+   check passed.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. It exits non-zero, printing no result, without a CUDA card.
@@ -95,6 +111,10 @@ from sugar_tpu_torch.fields.knn import _sq_dists as knn_sq_dists
 from sugar_tpu_torch.fields.knn import knn
 from sugar_tpu_torch.interop import model_from_numpy, params_from_numpy
 from sugar_tpu_torch.io.datasets import nerfpp_extent
+from sugar_tpu_torch.io.ply import load_mesh_ply
+from sugar_tpu_torch.meshing import levelset, meshops, poisson
+from sugar_tpu_torch.meshing.extract import ExtractConfig, extract_mesh_from_coarse_model
+from sugar_tpu_torch.models.densifier import prune_low_opacity
 from sugar_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianParams, load_ply, save_ply
 from sugar_tpu_torch.models.render import render_model, render_params
 from sugar_tpu_torch.raster import adaptive
@@ -114,6 +134,17 @@ from sugar_tpu_torch.raster.tile_composite import (
     tile_composite_bwd_plain,
     tile_composite_cuda,
     tile_composite_plain,
+)
+from sugar_tpu_torch.refine.bound import BOUND_FIELDS, init_bound_params, normal_consistency_pairs
+from sugar_tpu_torch.refine.trainer import (
+    RefineConfig,
+    bound_lrs,
+    export_refined_ply,
+    init_bound_adam,
+    make_refine_step,
+    refine_loss,
+    refined_training,
+    render_bound,
 )
 from sugar_tpu_torch.trainers import coarse as coarse_mod
 from sugar_tpu_torch.trainers import optimizer as opt
@@ -1598,6 +1629,499 @@ def phase_knn(check, dev, serve_model) -> dict:
     return dict(ms_train=ms_t, ms_serve=ms_s, serve_idx=i_s)
 
 
+# --- [10] coarse mesh extraction ----------------------------------------
+
+# Card against CPU, the level set of one camera of a small scene: the
+# valid masks may differ on at most LEVELSET_SHARE of the pixels (a depth
+# within K1's 1e-4 of the plain render's moves a density sample across
+# the level); on the pixels valid in both, points within
+# LEVELSET_POINT_ATOL (scene units; the sphere's radius is 0.7) and
+# normals within LEVELSET_NORMAL_ATOL, except on at most LEVELSET_SHARE of
+# the pixels (there the first crossing moved to the next ray segment).
+LEVELSET_HW = 96
+LEVELSET_SHARE = 1e-3
+LEVELSET_POINT_ATOL = 1e-4
+LEVELSET_NORMAL_ATOL = 1e-3
+
+
+class CallTimes:
+    """Replaces module functions with timed wrappers for one phase: each
+    call is timed by CUDA events (``device``) or the host clock, under a
+    label and the current ``tag``; ``restore`` puts the originals back."""
+
+    def __init__(self):
+        self.saved: list[tuple] = []
+        self.calls: list[tuple] = []  # (label, tag, (e0, e1) or host ms)
+        self.tag = None
+
+    def wrap(self, mod, name: str, label: str, device: bool) -> None:
+        orig = getattr(mod, name)
+        self.saved.append((mod, name, orig))
+
+        def timed(*args, **kwargs):
+            if device:
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                r = orig(*args, **kwargs)
+                e1.record()
+                self.calls.append((label, self.tag, (e0, e1)))
+            else:
+                t0 = time.perf_counter()
+                r = orig(*args, **kwargs)
+                self.calls.append((label, self.tag, (time.perf_counter() - t0) * 1e3))
+            return r
+
+        setattr(mod, name, timed)
+
+    def restore(self) -> None:
+        for mod, name, orig in reversed(self.saved):
+            setattr(mod, name, orig)
+        self.saved.clear()
+
+    def totals(self) -> dict[tuple, list[float]]:
+        """(label, tag) -> the calls' ms (synchronizes the card)."""
+        torch.cuda.synchronize()
+        out: dict[tuple, list[float]] = {}
+        for label, tag, t in self.calls:
+            out.setdefault((label, tag), []).append(t[0].elapsed_time(t[1]) if isinstance(t, tuple)
+                                                    else t)
+        return out
+
+
+def levelset_scene(dev, n: int = 200, capacity: int = 256, seed: int = 0):
+    """200 flattened Gaussians tangent to a sphere of radius 0.7 at the
+    origin, in 256 slots, SH 0 (tests/test_torch_meshing.py's scene)."""
+    g = np.random.default_rng(seed)
+    d = g.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    z = np.array([0.0, 0.0, 1.0])
+    quats = np.concatenate([1.0 + d @ z[:, None], np.cross(z, d)], -1)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    opac = g.uniform(0.55, 0.95, n)
+    s = g.uniform(0.1, 0.16, n)
+    fields, alive = pad_fields(dict(
+        xyz=0.7 * d, sh_dc=(0.4 + 0.6 * np.abs(d) - 0.5) / C0, sh_rest=np.zeros((n, 3, 0)),
+        opacity_logit=np.log(opac / (1 - opac)),
+        log_scales=np.log(np.stack([s, s * g.uniform(0.7, 1.0, n), s * 0.2], -1)),
+        quaternions=quats), capacity)
+    return model_from_numpy(fields, alive, 0, device=dev)
+
+
+def phase_levelset_card_vs_cpu(check, dev) -> None:
+    """level_surface_points_one_camera on the card (K1) and on the CPU
+    (the plain versions), one camera of the small scene."""
+    th = 0.7
+    R = np.array([[math.cos(th), 0.0, math.sin(th)], [0.0, 1.0, 0.0],
+                  [-math.sin(th), 0.0, math.cos(th)]])
+    T = -R.T @ (-R @ np.array([0.0, 0.0, 2.5]))
+
+    def run(device):
+        m = levelset_scene(device)
+        cam = make_camera(R, T, 0.8, 0.8, LEVELSET_HW, LEVELSET_HW, device=device)
+        out = levelset.level_surface_points_one_camera(m.params, m.alive, cam, dup_capacity=8192,
+                                                       k_max=256)
+        return {k: v.cpu() for k, v in out.items()}
+
+    reset_launches()
+    card = run(dev)
+    counts = launches()
+    cpu = run("cpu")
+    pixels = LEVELSET_HW * LEVELSET_HW
+    mask_diff = int((card["valid"] != cpu["valid"]).sum())
+    both = card["valid"] & cpu["valid"]
+    same_g = both & (card["gaussian_idx"] == cpu["gaussian_idx"])
+    dp = (card["points"] - cpu["points"]).abs().amax(-1)
+    dn = (card["normals"] - cpu["normals"]).abs().amax(-1)
+    off = int((both & ((dp > LEVELSET_POINT_ATOL) | (dn > LEVELSET_NORMAL_ATOL))).sum())
+    dd = float((card["depth"] - cpu["depth"]).abs().max())
+    row = dict(pixels=pixels, valid_card=int(card["valid"].sum()), valid_cpu=int(cpu["valid"].sum()),
+               mask_differs=mask_diff, gaussian_idx_differs=int((both & ~same_g).sum()),
+               beyond_tol=off, depth_max_abs=dd,
+               points_max_abs=float(torch.where(both, dp, 0.0).max()),
+               normals_max_abs=float(torch.where(both, dn, 0.0).max()))
+    print(f"[10] level set card vs CPU, 200-Gaussian sphere at {LEVELSET_HW}x{LEVELSET_HW}: "
+          f"{json.dumps(row)}; launches (K1, K2, K3) {counts}")
+    check(counts == (1, 0, 0), "level set on the card: one K1 launch, no backward")
+    check(mask_diff <= LEVELSET_SHARE * pixels and off <= LEVELSET_SHARE * pixels
+          and row["valid_card"] > 500,
+          f"level set: valid masks, points (atol {LEVELSET_POINT_ATOL}) and normals (atol "
+          f"{LEVELSET_NORMAL_ATOL}) agree with the CPU's but on <= {LEVELSET_SHARE} of the pixels")
+
+
+def phase_extract(check, dev, coarse_model, cams) -> dict:
+    """extract_mesh_from_coarse_model at full width with ExtractConfig's
+    defaults, each part timed through wrappers of the functions it calls."""
+    ct = CallTimes()
+    ls_calls: list[dict] = []
+    orig_one = levelset.level_surface_points_one_camera
+
+    def one_camera(*args, **kwargs):
+        ct.tag = len(ls_calls)
+        before = launches()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig_one(*args, **kwargs)
+        e1.record()
+        ls_calls.append(dict(events=(e0, e1), valid=int(out["valid"].sum()),
+                             launches=tuple(a - b for a, b in zip(launches(), before)),
+                             overflow=adaptive.read_overflow(out)))
+        ct.tag = None
+        return out
+
+    for mod, name, label, on_dev in (
+        (levelset, "render_params_with_colors", "depth render", True),
+        (levelset, "knn", "KNN", True),
+        (df, "field_values", "field query", True),
+        (levelset, "_density_grad", "gradient", True),
+        (meshops, "remove_statistical_outliers", "outlier removal", False),
+        (poisson, "poisson_reconstruct", "poisson", False),
+        (poisson, "_splat_trilinear", "splat", False),
+        (poisson, "surface_nets", "surface nets", False),
+        (poisson, "remove_low_density_vertices", "trim", False),
+        (native, "qem_decimate", "QEM", False),
+        (meshops, "clean_mesh", "clean", False),
+    ):
+        ct.wrap(mod, name, label, on_dev)
+    levelset.level_surface_points_one_camera = one_camera
+    cfg = ExtractConfig()
+    path = os.path.join(WORK, "coarse_mesh.ply")
+    os.makedirs(WORK, exist_ok=True)
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        verts, faces = extract_mesh_from_coarse_model(coarse_model, cams, cfg, output_path=path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        levelset.level_surface_points_one_camera = orig_one
+        ct.restore()
+    tot = ct.totals()
+    n_alive = int((coarse_model.alive & (torch.sigmoid(coarse_model.params.opacity_logit)
+                                         >= cfg.prune_opacity_threshold)).sum())
+    print(f"[10] extract_mesh_from_coarse_model, ExtractConfig defaults (surface_level "
+          f"{cfg.surface_level}, total_points {cfg.total_points}, poisson_resolution "
+          f"{cfg.poisson_resolution}, decimation_target {cfg.decimation_target}, dup_capacity "
+          f"{cfg.dup_capacity}, k_max {cfg.k_max}), {n_alive} Gaussians after the prune in "
+          f"{coarse_model.capacity} slots, {len(cams)} cameras at {H}x{W}: {wall:.2f} s wall; "
+          f"launches (K1, K2, K3) {counts}")
+    cam_ms, overflowing = [], []
+    for i, c in enumerate(ls_calls):
+        whole = c["events"][0].elapsed_time(c["events"][1])
+        parts = {k: sum(tot.get((k, i), [0.0]))
+                 for k in ("depth render", "KNN", "field query", "gradient")}
+        rest = whole - sum(parts.values())
+        cam_ms.append(dict(whole=whole, rest=rest, **parts))
+        o = c["overflow"]
+        if adaptive.overflowed(o):
+            overflowing.append(i)
+        print(f"    camera {i}: {whole:.1f} ms device (depth render {parts['depth render']:.2f}, "
+              f"KNN {parts['KNN']:.1f}, field query {parts['field query']:.2f} in "
+              f"{len(tot.get(('field query', i), []))} chunks, gradient {parts['gradient']:.2f}, "
+              f"backprojection + ray sigma + crossing {rest:.2f}); valid {c['valid']} of "
+              f"{H * W}; launches {c['launches']}; depth-render counters {json.dumps(o)}")
+    host = {k: sum(tot.get((k, None), [0.0])) for k in (
+        "outlier removal", "splat", "surface nets", "poisson", "trim", "QEM", "clean")}
+    host["FFT solve + iso"] = host.pop("poisson") - host["splat"] - host["surface nets"]
+    print("    host ms: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+          + f" (QEM calls {len(tot.get(('QEM', None), []))}: the mesh is under the "
+          f"{cfg.decimation_target} budget when 0); mesh {len(verts)} vertices, {len(faces)} faces")
+    if overflowing:
+        print(f"    NOTE: the depth render at the level set's fixed caps (dup_capacity "
+              f"{cfg.dup_capacity}, k_max {cfg.k_max}) dropped splats on cameras {overflowing}: "
+              f"a fault of the reference's level set (no capacity loop), kept for parity")
+    # What the fixed caps drop: the camera with the most tile overflow
+    # again at a k_max that covers its deepest tile.
+    worst = max(range(len(ls_calls)), key=lambda i: ls_calls[i]["overflow"]["tile_overflow"])
+    o = ls_calls[worst]["overflow"]
+    m = prune_low_opacity(coarse_model, cfg.prune_opacity_threshold)
+    fixed = levelset.level_surface_points_one_camera(m.params, m.alive, cams[worst],
+                                                     dup_capacity=cfg.dup_capacity, k_max=cfg.k_max)
+    k_full = -(-o["max_tile_count"] // C_CHUNK) * C_CHUNK
+    full = levelset.level_surface_points_one_camera(m.params, m.alive, cams[worst],
+                                                    dup_capacity=cfg.dup_capacity, k_max=k_full)
+    covered = (fixed["depth"] < fixed["depth"].max()) & (full["depth"] < full["depth"].max())
+    both_depth = torch.where(covered, (fixed["depth"] - full["depth"]).abs(), 0.0)
+    grown = dict(camera=worst, k_max=k_full, overflow=adaptive.read_overflow(full),
+                 valid_fixed=int(fixed["valid"].sum()), valid_grown=int(full["valid"].sum()),
+                 valid_differs=int((fixed["valid"] != full["valid"]).sum()),
+                 covered=int(covered.sum()), depth_differs_1e4=int((both_depth > 1e-4).sum()),
+                 depth_max_abs=float(both_depth.max()))
+    print(f"    camera {worst} at k_max {k_full} (covers its deepest tile): {json.dumps(grown)}")
+    del fixed, full
+    check(len(ls_calls) == len(cams) and all(c["launches"] == (1, 0, 0) for c in ls_calls)
+          and counts == (len(cams), 0, 0), "mesh extraction: one K1 launch per level-set camera, "
+          "no K2 or K3")
+    check(all(c["valid"] >= 1000 for c in ls_calls), "level set: every camera finds >= 1000 points")
+    radius = np.linalg.norm(verts - np.array([0.0, 0.0, 3.2], np.float32), axis=1)
+    finite = bool(np.isfinite(verts).all())
+    check(finite and len(verts) > 20_000 and len(faces) > 40_000 and faces.min() >= 0
+          and faces.max() < len(verts) and abs(float(np.median(radius)) - 0.72) < 0.1,
+          f"mesh finite, > 20k vertices, faces in range, median radius {np.median(radius):.4f} "
+          f"about the blob's 0.72")
+    lv, lf, lc = load_mesh_ply(path)
+    check(np.array_equal(lv, verts) and np.array_equal(lf, faces) and lc is not None
+          and len(lc) == len(verts), "the mesh PLY loads back equal, with vertex colors")
+    # QEM on the card's host: the mesh to a fifth (200k of 1M, the
+    # low_poly preset's share of the high_poly budget).
+    target = len(verts) // 5
+    t0 = time.perf_counter()
+    dv, dfc = meshops.decimate(verts, faces, target)
+    qem_s = time.perf_counter() - t0
+    print(f"    QEM decimate (+ clean) {len(verts)} -> target {target}: {len(dv)} vertices, "
+          f"{len(dfc)} faces in {qem_s * 1e3:.1f} ms host")
+    check(abs(len(dv) - target) <= 0.05 * target and len(dfc) > 0 and dfc.max() < len(dv),
+          "QEM decimation builds and lands within 5% of its target")
+    return dict(path=path, verts=verts, faces=faces, colors=lc, wall_s=wall, cam_ms=cam_ms,
+                host=host, launches=counts, overflowing=overflowing, qem_ms=qem_s * 1e3,
+                grown=grown)
+
+
+# --- [11] refinement ----------------------------------------------------
+
+REFINE_ITERS = 20
+REFINE_MILESTONE = 10
+REFINE_HW = 64
+MIN_EXPORT_PSNR_DB = 50.0
+
+
+def refine_view_losses(cfg, params, bm, pairs, cams, targets, deg, caps) -> list[float]:
+    with torch.no_grad():
+        return [float(refine_loss(cfg, params, bm, pairs, cam, gt, deg, caps.dup_capacity,
+                                  k_max=caps.k_max, tile_cap=caps.tile_cap, cap_a=caps.cap_a,
+                                  big_cap=caps.big_cap)[0]) for cam, gt in zip(cams, targets)]
+
+
+def grown_refine_caps(cfg, params, bm, cams, deg, caps):
+    """The trainer's growth rule over every view until no render drops
+    anything."""
+    for _ in range(6):
+        grew = False
+        for cam in cams:
+            with torch.no_grad():
+                out = render_bound(params, bm, cam, deg, torch.zeros(3, device=cam.world_view.device),
+                                   caps.dup_capacity, caps.k_max, tile_cap=caps.tile_cap,
+                                   cap_a=caps.cap_a, big_cap=caps.big_cap)
+            ovf = adaptive.read_overflow(out)
+            if adaptive.overflowed(ovf):
+                caps, grew = caps.grown(ovf), True
+        if not grew:
+            return caps
+    raise RuntimeError(f"refine caps did not converge: {caps}")
+
+
+def phase_refine_card_vs_cpu(check, dev) -> None:
+    """The vertex gradient of one refine step on a small mesh (surface nets
+    of a sphere, ~700 faces, 3 Gaussians per triangle, SH 3): card (the
+    kernels) against CPU (the plain versions)."""
+    xs = np.linspace(-1.5, 1.5, 14)
+    X, Y, Z = np.meshgrid(xs, xs, xs, indexing="ij")
+    field = (np.sqrt(X**2 + Y**2 + Z**2) - 1.0).astype(np.float32)
+    vg, faces = poisson.surface_nets(field, 0.0)
+    verts = (vg * (xs[1] - xs[0]) + xs[0]) * 0.6 + np.array([0.0, 0.0, 3.0], np.float32)
+    g = np.random.default_rng(12)
+    vc = g.uniform(0, 1, (len(verts), 3)).astype(np.float32)
+    gt = g.uniform(0, 1, (REFINE_HW, REFINE_HW, 3)).astype(np.float32)
+    rest = g.normal(0, 0.1, (3 * len(faces), 3, 15)).astype(np.float32)
+    cfg = RefineConfig(n_gaussians_per_triangle=3)
+    pairs_np = normal_consistency_pairs(faces).astype(np.int64)
+
+    def step(device):
+        p, bm = init_bound_params(verts, faces, vc, 3, extent=2.0, sh_degree=3, device=device)
+        p = dataclasses.replace(p, sh_rest=torch.as_tensor(rest, device=device))
+        cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.9, REFINE_HW, REFINE_HW, device=device)
+        caps = adaptive.RasterCaps(tile_cap=16, dup_capacity=8 * 3 * len(faces), k_max=1024)
+        fn = make_refine_step(cfg, bm, torch.as_tensor(pairs_np, device=device),
+                              bound_lrs(cfg, 0.1), 3, caps)
+        _, adam, aux = fn(p, init_bound_adam(p), cam, torch.as_tensor(gt, device=device), 5)
+        return float(aux["loss"]), (adam.mu.vertices / (1 - cfg.beta1)).cpu(), aux
+
+    reset_launches()
+    loss_card, g_card, aux = step(dev)
+    torch.cuda.synchronize()
+    counts = launches()
+    loss_cpu, g_cpu, _ = step("cpu")
+    err, scale = float((g_card - g_cpu).abs().max()), float(g_cpu.abs().max())
+    print(f"[11] refine step card vs CPU, {len(faces)}-face sphere, 3 Gaussians per triangle, SH 3, "
+          f"{REFINE_HW}x{REFINE_HW}: loss {loss_card:.7f} / {loss_cpu:.7f}; vertex gradient max abs "
+          f"diff {err:.3e}, max|g| {scale:.3e}; launches (K1, K2, K3) {counts}; overflow "
+          f"{json.dumps(adaptive.read_overflow(aux))}")
+    check(counts == (1, 1, 1), "refine step on the card: K1, K2, K3 once each")
+    check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu) and scale > 0
+          and err <= CARD_CPU_RTOL * scale,
+          f"refine step: loss and vertex gradient on the card within {CARD_CPU_RTOL} x max|g| of "
+          f"the CPU's")
+
+
+def phase_refine(check, dev, mesh, cams, targets, extent) -> dict:
+    """refined_training at full width on the extracted mesh: the window,
+    its milestone and resume, then the step timed and profiled, and the
+    refined PLY rendered back."""
+    from sugar_tpu_torch.refine import trainer as refine_mod
+
+    verts, faces = mesh["verts"], mesh["faces"]
+    vc = mesh["colors"].astype(np.float32) / 255.0
+    t0 = time.perf_counter()
+    pairs_np = normal_consistency_pairs(faces)
+    pairs_s = time.perf_counter() - t0
+    cfg = RefineConfig(num_iterations=REFINE_ITERS, checkpoint_iterations=(REFINE_MILESTONE,),
+                       log_every=1)
+    ckpt_dir = os.path.join(WORK, "refine_milestones")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    saved = {}
+    save_milestone = refine_mod.ckpt.save_milestone
+
+    def recording_save(base, it, state):  # keep the saved state to hold the restore to
+        saved.update(it=it, state=dict(state))
+        return save_milestone(base, it, state)
+
+    logs, per_iter = [], []
+
+    def log(r):
+        logs.append(r)
+        if "loss" in r:
+            per_iter.append(launches())
+
+    refine_mod.ckpt.save_milestone = recording_save
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, bm = refined_training(verts, faces, vc, cams, targets, extent, cfg, log_fn=log,
+                                      checkpoint_dir=ckpt_dir, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        refine_mod.ckpt.save_milestone = save_milestone
+    n_g = int(params.opacity_logit.shape[0])
+    steps = [r for r in logs if "loss" in r]
+    grows = [r for r in logs if r.get("event") == "cap_grow"]
+    deltas = [tuple(a - b for a, b in zip(c, p)) for c, p in zip(per_iter, [(0, 0, 0)] + per_iter[:-1])]
+    print(f"[11] refined_training on the [10] mesh: {len(verts)} vertices, {len(faces)} faces, "
+          f"{n_g} Gaussians (1 per triangle), SH degree {cfg.sh_degree}, iterations 1-"
+          f"{REFINE_ITERS}: {wall:.2f} s wall; normal_consistency_pairs {pairs_s * 1e3:.1f} ms host "
+          f"({len(pairs_np)} pairs); launches (K1, K2, K3) {counts}; cap growths to (k_max, "
+          f"tile_cap, dup_capacity) "
+          f"{[(r['new']['k_max'], r['new']['tile_cap'], r['new']['dup_capacity']) for r in grows]}")
+    for r, dl in zip(steps, deltas):
+        print(f"    iter {r['iter']}: loss {r['loss']:.6f}, psnr {r['psnr']:.3f}, launches {dl}, "
+              f"overflow {[r.get(k, 0) for k in ('bin_overflow', 'cap_overflow', 'tile_overflow')]}")
+    check(len(steps) == REFINE_ITERS and all(math.isfinite(r["loss"]) for r in steps)
+          and all(bool(torch.isfinite(getattr(params, f)).all()) for f in BOUND_FIELDS),
+          "refine: every loss and every parameter finite")
+    check(deltas == [(1, 1, 1)] * REFINE_ITERS and counts == (REFINE_ITERS,) * 3,
+          "refine: one launch of K1, K2 and K3 per iteration")
+
+    # The loss over the 8 views before and after, at caps that drop nothing.
+    p0, _ = init_bound_params(verts, faces, vc, 1, extent=extent, sh_degree=cfg.sh_degree,
+                              device=dev)
+    pairs = torch.as_tensor(pairs_np.astype(np.int64), device=dev)
+    caps = adaptive.RasterCaps(tile_cap=16, dup_capacity=cfg.dup_capacity_mult * n_g, k_max=cfg.k_max)
+    caps = grown_refine_caps(cfg, params, bm, cams, cfg.sh_degree, caps)
+    before = refine_view_losses(cfg, p0, bm, pairs, cams, targets, 0, caps)
+    after = refine_view_losses(cfg, params, bm, pairs, cams, targets, 0, caps)
+    print(f"    mean loss over the {len(cams)} views: {statistics.mean(before):.6f} at the binding, "
+          f"{statistics.mean(after):.6f} after {REFINE_ITERS} iterations")
+    check(statistics.mean(after) < statistics.mean(before), "refine: the loss over the views falls")
+
+    # Resume from the milestone.
+    like = dict(params=params, adam=init_bound_adam(params), iteration=0)
+    st = ckpt.restore_structured(ckpt.milestone_path(ckpt_dir, REFINE_MILESTONE), like)
+    ref, got = ckpt._flatten(saved["state"]), ckpt._flatten(st)
+    exact = saved["it"] == REFINE_MILESTONE and ref.keys() == got.keys() and all(
+        np.array_equal(ref[k], got[k]) for k in ref)
+    rlogs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed, _ = refined_training(verts, faces, vc, cams, targets, extent, cfg, log_fn=rlogs.append,
+                                  checkpoint_dir=ckpt_dir, device=dev)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rsteps = [r for r in rlogs if "loss" in r]
+    diffs = {f: float((getattr(resumed, f) - getattr(params, f)).abs().max()) for f in BOUND_FIELDS}
+    after_r = refine_view_losses(cfg, resumed, bm, pairs, cams, targets, 0, caps)
+    rel = abs(statistics.mean(after_r) - statistics.mean(after)) / statistics.mean(after)
+    r_ovf = [r["iter"] for r in rsteps if r.get("tile_overflow", 0) or r.get("bin_overflow", 0)
+             or r.get("cap_overflow", 0)]
+    print(f"[11] resume from milestone {REFINE_MILESTONE}: {len(ref)} arrays restored bit-exact "
+          f"{exact}; {len(rsteps)} iterations in {resume_s:.2f} s; max |resumed - uninterrupted| "
+          f"per field {json.dumps(diffs)}; mean view loss {statistics.mean(after_r):.6f} against "
+          f"{statistics.mean(after):.6f} (relative {rel:.2e}; iterations that dropped splats after "
+          f"the resume, with the default caps again: {r_ovf})")
+    check(exact, "refine: the milestone restores the saved state bit-exactly on the card")
+    check({"event": "resume", "iteration": REFINE_MILESTONE} in rlogs
+          and len(rsteps) == REFINE_ITERS - REFINE_MILESTONE
+          and all(math.isfinite(r["loss"]) for r in rsteps),
+          f"refine: the resumed run starts at {REFINE_MILESTONE} and finishes finite")
+    check(rel <= (1e-2 if r_ovf else 1e-3),
+          "refine: the resumed run ends at the uninterrupted run's view loss (rel 1e-3; 1e-2 when "
+          "the resumed run's default caps dropped splats)")
+
+    # 10 steps at SH degree 3 by CUDA events, one profiled. Each starts
+    # from the trained state (the step leaves its inputs unchanged), so
+    # the caps grown on it cover every step.
+    lrs = bound_lrs(cfg, 10.0 * 0.5 * float(np.linalg.norm(verts.max(0) - verts.min(0)))
+                    / np.sqrt(len(verts)))
+    step = make_refine_step(cfg, bm, pairs, lrs, cfg.sh_degree, caps)
+    adam = init_bound_adam(params)
+    p = params
+    step(p, adam, cams[0], targets[0], REFINE_ITERS)  # warm-up
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ev, auxes = [], []
+    for i in range(TIMED_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        _, _, aux = step(p, adam, cams[i % len(cams)], targets[i % len(cams)], REFINE_ITERS + i)
+        e1.record()
+        ev.append((e0, e1))
+        auxes.append(aux)
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in ev]
+    peak = torch.cuda.max_memory_allocated() - base
+    timed_counts = launches()
+    ovf = [adaptive.read_overflow(a) for a in auxes]
+    check(timed_counts == (TIMED_STEPS,) * 3,
+          f"timed refine steps: one launch of each kernel per step {timed_counts}")
+    check(all(not adaptive.overflowed(o) for o in ovf)
+          and all(math.isfinite(float(a["loss"])) for a in auxes),
+          f"timed refine steps: overflow 0 and losses finite "
+          f"{[(o['tile_overflow'], o['cap_overflow'], o['bin_overflow']) for o in ovf]}")
+    wall_ms, busy_ms, ranked = profile_device(
+        lambda: step(p, adam, cams[0], targets[0], REFINE_ITERS), top=None)
+    print(f"[11] refine step at SH degree 3, {n_g} Gaussians, caps {caps}: median "
+          f"{statistics.median(step_ms):.3f} ms of {TIMED_STEPS} (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}: {', '.join(f'{v:.3f}' for v in step_ms)}); peak memory above the "
+          f"state {peak / 1e9:.3f} GB")
+    print(f"    under torch.profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle "
+          f"share {1.0 - busy_ms / wall_ms:.3f}; {len(ranked)} distinct kernels, "
+          f"{sum(c for _, _, c in ranked)} launches")
+    for name, t_ms, calls in ranked[:12]:
+        print(f"      {t_ms:8.3f} ms  {calls:4d}x  {name[:100]}")
+
+    # The refined PLY rendered back through the serving path.
+    ply_path = os.path.join(WORK, "refined.ply")
+    export_refined_ply(p, bm, ply_path)
+    served = load_ply(ply_path, device=dev)
+    os.remove(ply_path)
+    bg = torch.zeros(3, device=dev)
+    ref_img, _ = adaptive.render_adaptive(render_bound, caps, p, bm, cams[0], cfg.sh_degree, bg)
+    ply_img, _ = adaptive.render_adaptive(render_model, caps, served, cams[0], bg=bg)
+    db = float(psnr(torch.clamp(ply_img["image"], 0, 1), torch.clamp(ref_img["image"], 0, 1)))
+    print(f"[11] export_refined_ply -> load_ply(device='cuda') ({int(served.alive.sum())} Gaussians, "
+          f"SH {served.sh_degree}) -> render_model, view 0: PSNR {db:.2f} dB against render_bound")
+    check(db >= MIN_EXPORT_PSNR_DB and served.sh_degree == cfg.sh_degree,
+          f"refined PLY renders within {MIN_EXPORT_PSNR_DB} dB of the bound model")
+    return dict(wall_s=wall, resume_s=resume_s, step_ms=statistics.median(step_ms),
+                step_ms_all=step_ms, busy_ms=busy_ms, wall_ms=wall_ms, peak_gb=peak / 1e9,
+                launches=counts, pairs_ms=pairs_s * 1e3, n_gaussians=n_g, psnr_db=db)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1877,7 +2401,25 @@ def main() -> int:
           f"{cs['peak_gb']:.3f} GB; train_coarse window {co['wall_s']:.2f} s, resume "
           f"{co['resume_s']:.2f} s")
 
-    k1n, k2n, k3n = tr["launches"]
+    # [10] coarse mesh extraction on the model [9] ends with; [11]
+    # refinement on its mesh against [7]'s ring images.
+    phase_levelset_card_vs_cpu(check, dev)
+    ex = phase_extract(check, dev, co["model"], cams)
+    phase_refine_card_vs_cpu(check, dev)
+    rf = phase_refine(check, dev, ex, cams, tr["targets"], co["extent"])
+    shutil.rmtree(WORK, ignore_errors=True)
+    ls_ms = [c["whole"] for c in ex["cam_ms"]]
+    print(f"[11] mesh + refine summary on {card}: level set per camera median "
+          f"{statistics.median(ls_ms):.1f} ms device (KNN median "
+          f"{statistics.median(c['KNN'] for c in ex['cam_ms']):.1f} ms); extraction "
+          f"{ex['wall_s']:.2f} s wall; mesh {len(ex['verts'])} vertices, {len(ex['faces'])} faces; "
+          f"refine step median {rf['step_ms']:.3f} ms, device busy {rf['busy_ms']:.3f} ms of "
+          f"{rf['wall_ms']:.3f} ms profiled (idle share {1.0 - rf['busy_ms'] / rf['wall_ms']:.3f}), "
+          f"peak {rf['peak_gb']:.3f} GB; refine window {rf['wall_s']:.2f} s, resume "
+          f"{rf['resume_s']:.2f} s; launches (K1, K2, K3) training [7] {tr['launches']}, mesh "
+          f"[10] {ex['launches']}, refine [11] {rf['launches']}")
+
+    k1n, k2n, k3n = (a + b + c for a, b, c in zip(tr["launches"], ex["launches"], rf["launches"]))
     kernels = [
         dict(name="tile_composite_fwd", route="cuda",
              source="sugar_tpu_torch/csrc/tile_composite.cu",

@@ -7,9 +7,12 @@ with ``nvcc`` at first use and bound through ``ctypes``. On CPU tensors each
 kernel wrapper runs the kernel's plain PyTorch version instead.
 
 Ported so far: the render path (preprocess -> fused binning -> dup gather
--> tile compositing), the 3DGS PLY format and the Gaussian model. Training
-(the compositing backward and the gradient segment-sum) is the next slice;
-see ROADMAP.md.
+-> tile compositing), the 3DGS and mesh PLY formats, the Gaussian model,
+vanilla 3DGS training (the compositing backward and the gradient
+segment-sum), scene loading, coarse SuGaR, coarse mesh extraction
+(``meshing/``, with the host C++ QEM decimation of ``csrc/qem.cpp``) and
+mesh-bound refinement (``refine/``). The texture bake is next; see
+ROADMAP.md.
 
 Importing the package builds nothing and needs neither a GPU nor ``nvcc``.
 """

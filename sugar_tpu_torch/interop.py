@@ -7,6 +7,9 @@ port's tensors; nothing is converted in value. Its optimizer state
 (``DensifyStats``) and the coarse stage's KNN table cross the same way, so
 a training run can move between the packages. The PLY format is the other
 route (``models.gaussians.load_ply`` reads files the JAX package wrote).
+The refined stage's mesh-bound state (``BoundParams`` fields, the faces,
+the Gaussians per triangle and the thickness) and its ``BoundAdamState``
+cross as numpy too.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import torch
 
 from sugar_tpu_torch.models.densifier import DensifyStats
 from sugar_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianModel, GaussianParams
+from sugar_tpu_torch.refine import bound as B
+from sugar_tpu_torch.refine.trainer import BoundAdamState
 from sugar_tpu_torch.trainers.optimizer import AdamState
 
 
@@ -81,3 +86,49 @@ def knn_table_from_numpy(idx: np.ndarray, device: str | torch.device = "cuda") -
     """The coarse stage's (N, K) neighbor table (the JAX package keeps it
     int32) as the port's int64 index tensor."""
     return torch.as_tensor(np.asarray(idx, dtype=np.int64), device=device)
+
+
+def _bound_params(d: Mapping[str, np.ndarray], device) -> B.BoundParams:
+    missing = [f for f in B.BOUND_FIELDS if f not in d]
+    if missing:
+        raise KeyError(f"missing BoundParams fields: {missing}")
+    return B.BoundParams(**{
+        f: torch.as_tensor(np.ascontiguousarray(d[f], dtype=np.float32), device=device)
+        for f in B.BOUND_FIELDS
+    })
+
+
+def bound_from_numpy(
+    d: Mapping[str, np.ndarray],
+    faces: np.ndarray,
+    n_per_triangle: int,
+    thickness: float,
+    device: str | torch.device = "cuda",
+) -> tuple[B.BoundParams, B.BoundMesh]:
+    """(BoundParams, BoundMesh) from the six raw fields (vertices,
+    log_scales, complex_rot, opacity_logit, sh_dc, sh_rest) as float32
+    arrays, the (F, 3) faces (int32 in the JAX package; int64 here), the
+    Gaussians per triangle and the thickness."""
+    _, bary = B.BARY_TABLES[int(n_per_triangle)]
+    bm = B.BoundMesh(
+        faces=torch.as_tensor(np.asarray(faces, dtype=np.int64), device=device),
+        bary=torch.as_tensor(np.asarray(bary, dtype=np.float32), device=device),
+        thickness=torch.tensor(float(thickness), dtype=torch.float32, device=device),
+        n_per_triangle=int(n_per_triangle),
+    )
+    return _bound_params(d, device), bm
+
+
+def bound_adam_from_numpy(
+    mu: Mapping[str, np.ndarray],
+    nu: Mapping[str, np.ndarray],
+    count: int,
+    device: str | torch.device = "cuda",
+) -> BoundAdamState:
+    """BoundAdamState from the first and second moments (dicts of the six
+    BoundParams fields) and the step count."""
+    return BoundAdamState(
+        mu=_bound_params(mu, device),
+        nu=_bound_params(nu, device),
+        count=torch.tensor(int(count), dtype=torch.int32, device=device),
+    )

@@ -1,7 +1,9 @@
 """Minimal PLY reader/writer + the 3DGS Gaussian PLY contract.
 
-Copy of the Gaussian-PLY part of ``sugar_tpu/io/ply.py`` (numpy only; the
-port keeps its own copy so it imports nothing of the JAX package). The
+Copy of ``sugar_tpu/io/ply.py`` (numpy only; the port keeps its own copy
+so it imports nothing of the JAX package): the Gaussian PLY, the point
+cloud PLY and the triangle-mesh PLY (float32 ``x y z``, optional uchar
+``red green blue``, a ``face`` element of int ``vertex_indices`` lists). The
 attribute layout is byte-compatible with the reference
 (gaussian_model.py:177-256): a binary little-endian ``vertex`` element of
 float32 properties ``x y z nx ny nz f_dc_0..2 f_rest_* opacity scale_*
@@ -237,3 +239,56 @@ def load_gaussian_ply(path: str) -> dict[str, np.ndarray]:
         log_scales=np.stack([v[k] for k in scale_names], axis=1).astype(np.float32),
         quaternions=np.stack([v[k] for k in rot_names], axis=1).astype(np.float32),
     )
+
+
+def save_point_cloud_ply(
+    path: str, xyz: np.ndarray, colors: np.ndarray | None = None, normals: np.ndarray | None = None
+) -> None:
+    """Point cloud with optional uchar RGB + float normals (storePly format,
+    dataset_readers.py:107-128)."""
+    props: dict[str, np.ndarray] = {}
+    for i, k in enumerate("xyz"):
+        props[k] = xyz[:, i].astype(np.float32)
+    if normals is not None:
+        for i, k in enumerate(("nx", "ny", "nz")):
+            props[k] = normals[:, i].astype(np.float32)
+    if colors is not None:
+        c = colors
+        if c.dtype != np.uint8:
+            c = (np.clip(c, 0, 1) * 255).astype(np.uint8)
+        for i, k in enumerate(("red", "green", "blue")):
+            props[k] = c[:, i]
+    write_ply(path, {"vertex": props})
+
+
+def save_mesh_ply(
+    path: str, vertices: np.ndarray, faces: np.ndarray, vertex_colors: np.ndarray | None = None
+) -> None:
+    """Triangle mesh PLY (vertex + face elements)."""
+    vprops: dict[str, np.ndarray] = {}
+    for i, k in enumerate("xyz"):
+        vprops[k] = vertices[:, i].astype(np.float32)
+    if vertex_colors is not None:
+        c = vertex_colors
+        if c.dtype != np.uint8:
+            c = (np.clip(c, 0, 1) * 255).astype(np.uint8)
+        for i, k in enumerate(("red", "green", "blue")):
+            vprops[k] = c[:, i]
+    write_ply(
+        path,
+        {"vertex": vprops, "face": {"vertex_indices": faces.astype(np.int32)}},
+        list_props={"face": {"vertex_indices": "int"}},
+    )
+
+
+def load_mesh_ply(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
+    """Read (vertices, faces, colors or None) from a mesh PLY."""
+    d = read_ply(path)
+    v = d["vertex"]
+    verts = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
+    fkey = "vertex_indices" if "vertex_indices" in d.get("face", {}) else "vertex_index"
+    faces = np.asarray(d["face"][fkey], dtype=np.int64) if "face" in d else np.zeros((0, 3), np.int64)
+    colors = None
+    if "red" in v:
+        colors = np.stack([v["red"], v["green"], v["blue"]], axis=1)
+    return verts, faces, colors

@@ -1,4 +1,5 @@
-"""Builds the hand-written CUDA kernels of ``csrc/`` and loads them.
+"""Builds the hand-written CUDA kernels of ``csrc/`` and the host C++
+library beside them, and loads them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``_build/``
@@ -8,6 +9,12 @@ built when the package is imported: the first call that needs a kernel
 builds it, so the package imports on machines without ``nvcc`` or a GPU.
 ``build_all`` starts one ``nvcc`` per kernel, all at once, and waits for
 them together.
+
+``csrc/qem.cpp`` (quadric mesh decimation, a copy of the JAX package's)
+is host code, not a kernel: ``build_host`` compiles it with the host C++
+compiler (``CXX``, g++) into the same ``_build/``, named by a hash of its
+source, the compiler and the flags, and ``qem_decimate`` loads it at first
+use. A failed build raises.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import os
 import subprocess
 import time
 
+import numpy as np
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
@@ -29,6 +38,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -88,3 +100,74 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_so_path(name))
         _libs[name] = lib
     return lib
+
+
+def _host_so_path(name: str) -> str:
+    h = hashlib.sha256()
+    with open(os.path.join(_SRC, f"{name}.cpp"), "rb") as f:
+        h.update(f.read())
+    h.update(" ".join((CXX, *CXX_FLAGS)).encode())
+    return os.path.join(_BUILD, f"{name}_{h.hexdigest()[:16]}.so")
+
+
+def build_host(name: str) -> float | None:
+    """Compile the host library ``csrc/<name>.cpp`` with ``CXX`` unless it
+    is built; returns the seconds it took, or None when it was built
+    already. Raises RuntimeError with the compiler's output when the build
+    fails (OSError when the compiler is missing)."""
+    so = _host_so_path(name)
+    if os.path.exists(so):
+        return None
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    r = subprocess.run([CXX, *CXX_FLAGS, os.path.join(_SRC, f"{name}.cpp"), "-o", tmp],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"{CXX} failed for {name}:\n{r.stdout}{r.stderr}")
+    os.replace(tmp, so)
+    return time.perf_counter() - t0
+
+
+def _load_qem() -> ctypes.CDLL:
+    lib = _libs.get("qem")
+    if lib is None:
+        build_host("qem")
+        lib = ctypes.CDLL(_host_so_path("qem"))
+        lib.qem_decimate.restype = ctypes.c_int
+        lib.qem_decimate.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ]
+        _libs["qem"] = lib
+    return lib
+
+
+def qem_decimate(
+    vertices: np.ndarray, faces: np.ndarray, target_vertices: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Garland-Heckbert quadric decimation to ~target_vertices (the JAX
+    package's ``sugar_tpu.native.qem_decimate``); the library is built on
+    first use."""
+    lib = _load_qem()
+    v = np.ascontiguousarray(vertices, np.float32)
+    f = np.ascontiguousarray(faces, np.int64)
+    out_v = np.empty_like(v)
+    out_f = np.empty_like(f)
+    nv = ctypes.c_int64(0)
+    nf = ctypes.c_int64(0)
+    rc = lib.qem_decimate(
+        v.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), v.shape[0],
+        f.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), f.shape[0],
+        int(target_vertices),
+        out_v.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.byref(nv),
+        out_f.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.byref(nf),
+    )
+    if rc != 0:
+        raise RuntimeError(f"qem_decimate failed with code {rc}")
+    return out_v[: nv.value].copy(), out_f[: nf.value].copy()

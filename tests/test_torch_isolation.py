@@ -43,7 +43,8 @@ def test_port_has_the_slice_modules():
               "trainers.optimizer", "trainers.schedule", "trainers.vanilla",
               "models.densifier", "utils.checkpoint", "io.colmap", "io.datasets",
               "fields.knn", "fields.density", "fields.regularizers", "fields.normals",
-              "trainers.coarse"):
+              "trainers.coarse", "meshing.poisson", "meshing.meshops", "meshing.levelset",
+              "meshing.extract", "meshing.ablations", "refine.bound", "refine.trainer"):
         assert f"sugar_tpu_torch.{m}" in mods, m
 
 
@@ -66,13 +67,19 @@ def test_imports_without_jax_or_sugar_tpu():
 
 
 def test_importing_builds_nothing():
-    """The kernel libraries are built on first use, not at import, and the
-    scene loaders import Pillow only when they read an image."""
+    """The kernel libraries and the host QEM library are built and loaded on
+    first use, not at import, and the scene loaders import Pillow only when
+    they read an image."""
     code = (
-        "import sys\n"
+        "import sys, os\n"
         "import sugar_tpu_torch.raster.tile_composite as t, sugar_tpu_torch.native as n\n"
         "import sugar_tpu_torch.raster.segsum as s, sugar_tpu_torch.trainers.coarse\n"
         "import sugar_tpu_torch.io.datasets\n"
+        "before = sorted(os.listdir(n._BUILD)) if os.path.isdir(n._BUILD) else []\n"
+        "import sugar_tpu_torch.meshing.extract, sugar_tpu_torch.meshing.ablations\n"
+        "import sugar_tpu_torch.refine.trainer\n"
+        "after = sorted(os.listdir(n._BUILD)) if os.path.isdir(n._BUILD) else []\n"
+        "assert before == after, (before, after)\n"
         "assert 'PIL' not in sys.modules\n"
         "assert n._libs == {}\n"
         "assert t.tile_composite_cuda.launches == 0\n"
