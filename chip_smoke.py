@@ -70,14 +70,18 @@ together), then:
    render (one K1 launch), KNN, field query, gradient and the rest, the
    valid pixels and the depth render's overflow counters (the reference's
    fixed caps drop splats; the worst camera is run again at a k_max that
-   covers its deepest tile), the host ms of each meshing step, the mesh
-   PLY loaded back, and QEM decimation of the mesh to a fifth;
+   covers its deepest tile), K1 against its plain version on the
+   arguments the worst camera's depth render gave it at the fixed caps,
+   the host ms of each meshing step, the mesh PLY loaded back, and QEM
+   decimation of the mesh to a fifth;
 11. refinement: one refine step's vertex gradient on a small mesh, card
    against CPU; ``refined_training`` with ``RefineConfig``'s defaults on
    the mesh of 10 against the ring images of 7 for 20 iterations (K1, K2,
    K3 once per iteration, the loss over the views falls), its milestone
    restored bit-exactly and resumed; 10 refine steps at SH degree 3 timed
-   and one profiled; the refined PLY rendered back through ``load_ply``;
+   and one profiled; K1, K2 and K3 against their plain versions on the
+   arguments one such step (trained state, grown caps) gave them; the
+   refined PLY rendered back through ``load_ply``;
    then prints the kernels line (launches summed over 7, 10 and 11), the
    card line, and last ``{"ok": true, "device": {...}}`` — only when every
    check passed.
@@ -88,6 +92,7 @@ just after. It exits non-zero, printing no result, without a CUDA card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -119,6 +124,8 @@ from sugar_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianParams, load_
 from sugar_tpu_torch.models.render import render_model, render_params
 from sugar_tpu_torch.raster import adaptive
 from sugar_tpu_torch.raster import common as rc
+from sugar_tpu_torch.raster import segsum as segsum_mod
+from sugar_tpu_torch.raster import tile_composite as tc_mod
 from sugar_tpu_torch.raster.api import rasterize_gaussians
 from sugar_tpu_torch.raster.dup_gather import gather_dup, round8
 from sugar_tpu_torch.raster.fused import assemble_tiles, bin_and_gather
@@ -766,6 +773,59 @@ def profile_device(fn, top: int | None = 12):
     return wall_ms, busy, ranked if top is None else ranked[:top]
 
 
+@contextlib.contextmanager
+def recorded_kernel_args():
+    """Inside the block, every K1, K2 and K3 launch of the main path also
+    records its arguments: yields {"K1": [args, ...], "K2": ..., "K3": ...}.
+    The recorders stand in for the wrappers in the modules that call them,
+    so the launches inside the block count on the recorders, not on the
+    kernels' counters."""
+    recs = {"K1": [], "K2": [], "K3": []}
+    slots = ((tc_mod, "tile_composite_cuda", "K1"), (tc_mod, "tile_composite_bwd_cuda", "K2"),
+             (segsum_mod, "segment_sum_cuda", "K3"))
+    originals = [getattr(mod, name) for mod, name, _ in slots]
+    for (mod, name, key), orig in zip(slots, originals):
+        def recorder(*args, _orig=orig, _out=recs[key]):
+            _out.append(args)
+            return _orig(*args)
+        recorder.launches = 0
+        setattr(mod, name, recorder)
+    try:
+        yield recs
+    finally:
+        for (mod, name, _), orig in zip(slots, originals):
+            setattr(mod, name, orig)
+
+
+def check_recorded(check, recs: dict, tag: str, label: str) -> dict:
+    """Each kernel against its plain version on the arguments one main-path
+    call gave it (recorded_kernel_args): K1 on its inputs, K2 on the
+    recorded cotangents (its recorded K1 records must equal K1's again,
+    bit for bit), K3 on its recorded cotangent columns and ids. Returns the
+    max abs error per kernel."""
+    errs = {}
+    with torch.no_grad():  # the step's inputs require grad; build no graph
+        for fw in recs["K1"]:
+            kern = tile_composite_cuda(*fw)
+            torch.cuda.synchronize()
+            d = compare(kern, tile_composite_plain(*fw))
+            print(f"{tag} K1 vs plain, {label}: {json.dumps(d)}; tiles {fw[0].shape[0]}, dup slots "
+                  f"{fw[2].shape[1]}, max_chunks {fw[5]}, deepest tile {int(fw[1].max())} slots, "
+                  f"nch max {int(kern.nch.max())}")
+            check(compare_ok(d), f"K1 {label} agrees with the plain version")
+            errs["K1"] = max(errs.get("K1", 0.0), d["img"], d["final_t"])
+            for bw in recs["K2"]:
+                same = all(torch.equal(a, b) for a, b in
+                           ((bw[2], kern.nch), (bw[6], kern.final_t), (bw[3], fw[2])))
+                check(same, f"K2 {label}: its recorded nch, final_T and dup_data are K1's")
+                _, _, errs["K2"] = check_k2(check, kern, fw, bw[4], bw[5], label, tag)
+            del kern
+        for ct, gid, n in recs["K3"]:
+            errs["K3"] = check_k3(check, ct, gid, n, f"{label} ({int((gid < n).sum())} live slots)",
+                                  tol_scale=float(ct.abs().max()), tag=tag)
+    return errs
+
+
 # --- the phases ---------------------------------------------------------
 
 
@@ -825,7 +885,7 @@ def phase_builds() -> None:
                   f"{spill} bytes spill stores")
 
 
-def check_k2(check, fwd: CompositeOut, args, g_img, gt_total, label: str):
+def check_k2(check, fwd: CompositeOut, args, g_img, gt_total, label: str, tag: str = "[3]"):
     """K2 against its plain version on one case; returns (kernel d_packed,
     max abs error over the blocks)."""
     start, count, dup, tiles_x, ch, max_chunks = args
@@ -835,7 +895,7 @@ def check_k2(check, fwd: CompositeOut, args, g_img, gt_total, label: str):
     torch.cuda.synchronize()
     plain = tile_composite_bwd_plain(*bwd_args)
     d = compare_bwd(kern, plain, ch)
-    print(f"[3] K2 vs plain, {label}: {json.dumps(d)}")
+    print(f"{tag} K2 vs plain, {label}: {json.dumps(d)}")
     check(all(v["ok"] for v in d.values()),
           f"K2 {label} agrees with the plain version within {BWD_RTOL} x max|d| per block")
     owned = owned_mask(start, count, dup.shape[1], max_chunks)
@@ -918,7 +978,7 @@ def deepest_alone(fw_args, nch, bwd_args) -> dict:
                 k2_ms=cuda_ms(lambda: tile_composite_bwd_cuda(*bargs), reps=10, warmup=2))
 
 
-def check_k3(check, ct, gid, n, label: str, tol_scale: float = 1.0) -> float:
+def check_k3(check, ct, gid, n, label: str, tol_scale: float = 1.0, tag: str = "[3]") -> float:
     """K3 against its plain version on one case, and a second launch into a
     NaN-filled output through the wrapper's launch helper: an element the
     kernel fails to write stays NaN. Returns the max abs error."""
@@ -930,7 +990,7 @@ def check_k3(check, ct, gid, n, label: str, tol_scale: float = 1.0) -> float:
     diff = (kern - plain).abs()
     err = float(diff.max())
     atol = SEGSUM_TOL * tol_scale
-    print(f"[3] K3 vs plain, {label}: rows {ct.shape[0]}, slots {ct.shape[1]}, n {n}, "
+    print(f"{tag} K3 vs plain, {label}: rows {ct.shape[0]}, slots {ct.shape[1]}, n {n}, "
           f"max abs err {err:.3e} (atol {atol:.3e}, rtol {SEGSUM_TOL})")
     check(bool((diff <= atol + SEGSUM_TOL * plain.abs()).all()) and tuple(kern.shape)
           == (ct.shape[0], n), f"K3 {label} agrees with the plain version")
@@ -1836,8 +1896,15 @@ def phase_extract(check, dev, coarse_model, cams) -> dict:
     worst = max(range(len(ls_calls)), key=lambda i: ls_calls[i]["overflow"]["tile_overflow"])
     o = ls_calls[worst]["overflow"]
     m = prune_low_opacity(coarse_model, cfg.prune_opacity_threshold)
-    fixed = levelset.level_surface_points_one_camera(m.params, m.alive, cams[worst],
-                                                     dup_capacity=cfg.dup_capacity, k_max=cfg.k_max)
+    with recorded_kernel_args() as recs:
+        fixed = levelset.level_surface_points_one_camera(m.params, m.alive, cams[worst],
+                                                         dup_capacity=cfg.dup_capacity,
+                                                         k_max=cfg.k_max)
+    check(len(recs["K1"]) == 1 and not recs["K2"] and not recs["K3"],
+          "level set: one K1 launch recorded for the kernel check")
+    k1_err = check_recorded(check, recs, "[10]", f"level-set depth render, camera {worst} at the "
+                            f"fixed caps")["K1"]
+    del recs
     k_full = -(-o["max_tile_count"] // C_CHUNK) * C_CHUNK
     full = levelset.level_surface_points_one_camera(m.params, m.alive, cams[worst],
                                                     dup_capacity=cfg.dup_capacity, k_max=k_full)
@@ -1875,7 +1942,7 @@ def phase_extract(check, dev, coarse_model, cams) -> dict:
           "QEM decimation builds and lands within 5% of its target")
     return dict(path=path, verts=verts, faces=faces, colors=lc, wall_s=wall, cam_ms=cam_ms,
                 host=host, launches=counts, overflowing=overflowing, qem_ms=qem_s * 1e3,
-                grown=grown)
+                grown=grown, k1_err=k1_err)
 
 
 # --- [11] refinement ----------------------------------------------------
@@ -2104,6 +2171,17 @@ def phase_refine(check, dev, mesh, cams, targets, extent) -> dict:
     for name, t_ms, calls in ranked[:12]:
         print(f"      {t_ms:8.3f} ms  {calls:4d}x  {name[:100]}")
 
+    # The kernels against their plain versions on what one such step gives
+    # them.
+    with recorded_kernel_args() as recs:
+        step(p, adam, cams[0], targets[0], REFINE_ITERS)
+        torch.cuda.synchronize()
+    check(all(len(v) == 1 for v in recs.values()),
+          "refine step: one K1, K2 and K3 launch recorded for the kernel check")
+    errs = check_recorded(check, recs, "[11]", f"refine step, view 0, {n_g} Gaussians, k_max "
+                          f"{caps.k_max}")
+    del recs
+
     # The refined PLY rendered back through the serving path.
     ply_path = os.path.join(WORK, "refined.ply")
     export_refined_ply(p, bm, ply_path)
@@ -2119,7 +2197,8 @@ def phase_refine(check, dev, mesh, cams, targets, extent) -> dict:
           f"refined PLY renders within {MIN_EXPORT_PSNR_DB} dB of the bound model")
     return dict(wall_s=wall, resume_s=resume_s, step_ms=statistics.median(step_ms),
                 step_ms_all=step_ms, busy_ms=busy_ms, wall_ms=wall_ms, peak_gb=peak / 1e9,
-                launches=counts, pairs_ms=pairs_s * 1e3, n_gaussians=n_g, psnr_db=db)
+                launches=counts, pairs_ms=pairs_s * 1e3, n_gaussians=n_g, psnr_db=db,
+                errs=errs)
 
 
 def main() -> int:
@@ -2420,6 +2499,11 @@ def main() -> int:
           f"[10] {ex['launches']}, refine [11] {rf['launches']}")
 
     k1n, k2n, k3n = (a + b + c for a, b, c in zip(tr["launches"], ex["launches"], rf["launches"]))
+    # max_abs_err: the largest over the comparisons at the paths' shapes
+    # ([3] view 0 of the 1M scene, [10] the depth render, [11] a refine step).
+    k1_err = max(k1_err, ex["k1_err"], rf["errs"]["K1"])
+    k2_err = max(k2_err, rf["errs"]["K2"])
+    k3_err = max(k3_err, rf["errs"]["K3"])
     kernels = [
         dict(name="tile_composite_fwd", route="cuda",
              source="sugar_tpu_torch/csrc/tile_composite.cu",

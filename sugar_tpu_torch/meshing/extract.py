@@ -61,7 +61,6 @@ def extract_mesh_from_coarse_model(
     output_path: str | None = None,
     rng: np.random.Generator | None = None,
     device_mesh=None,
-    mesh_axis: str = "data",
 ) -> tuple[np.ndarray, np.ndarray]:
     """Run the full extraction on the model's device (the level set) and
     the host (the rest); returns (vertices, faces) and optionally writes

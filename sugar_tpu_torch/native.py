@@ -11,10 +11,10 @@ builds it, so the package imports on machines without ``nvcc`` or a GPU.
 them together.
 
 ``csrc/qem.cpp`` (quadric mesh decimation, a copy of the JAX package's)
-is host code, not a kernel: ``build_host`` compiles it with the host C++
-compiler (``CXX``, g++) into the same ``_build/``, named by a hash of its
-source, the compiler and the flags, and ``qem_decimate`` loads it at first
-use. A failed build raises.
+is host code, not a kernel: it is one of ``HOST_LIBS``, which the same
+``build_all`` compiles with the host C++ compiler (``CXX``, g++) instead of
+``nvcc``, and ``qem_decimate`` loads it at first use. A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ _SRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
 KERNELS = ("tile_composite", "tile_composite_bwd", "segsum")
+HOST_LIBS = ("qem",)  # csrc/<name>.cpp, compiled with CXX: host code, not kernels
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -53,21 +54,33 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _recipe(name: str) -> tuple[list[str], tuple[str, ...]]:
+    """(source files, the first the one compiled; flags) of library
+    ``name``: a host library is its .cpp with CXX, a kernel its .cu and the
+    shared headers with nvcc."""
+    if name in HOST_LIBS:
+        return [os.path.join(_SRC, f"{name}.cpp")], (CXX, *CXX_FLAGS)
+    headers = sorted(glob.glob(os.path.join(_SRC, "*.cuh")))
+    return [os.path.join(_SRC, f"{name}.cu")] + headers, NVCC_FLAGS
+
+
 def _so_path(name: str) -> str:
+    sources, flags = _recipe(name)
     h = hashlib.sha256()
-    for path in [os.path.join(_SRC, f"{name}.cu")] + sorted(glob.glob(os.path.join(_SRC, "*.cuh"))):
+    for path in sources:
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return os.path.join(_BUILD, f"{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_all(names=KERNELS) -> dict[str, tuple[float, str]]:
-    """Compile every kernel of ``names`` that is not built yet, one nvcc
-    process each, started together. Returns {name: (seconds, nvcc output)}
-    for the kernels it compiled (the output holds ptxas's register and
-    shared-memory report). Raises RuntimeError with the compiler's output
-    when any build fails."""
+    """Compile every library of ``names`` that is not built yet, one
+    compiler process each, started together. Returns {name: (seconds,
+    compiler output)} for the libraries it compiled (nvcc's output holds
+    ptxas's register and shared-memory report). Raises RuntimeError with
+    the compiler's output when any build fails (OSError when the compiler
+    is missing)."""
     os.makedirs(_BUILD, exist_ok=True)
     running = {}
     t0 = time.perf_counter()
@@ -76,14 +89,16 @@ def build_all(names=KERNELS) -> dict[str, tuple[float, str]]:
         if os.path.exists(so):
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_SRC, f"{name}.cu")]
+        sources, flags = _recipe(name)
+        compiler = list(flags) if name in HOST_LIBS else [_nvcc(), *flags]  # CXX leads its flags
+        cmd = [*compiler, "-o", tmp, sources[0]]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, so)
     done, failed = {}, []
     for name, (proc, tmp, so) in running.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}:\n{log}")
+            failed.append(f"{os.path.basename(proc.args[0])} failed for {name}:\n{log}")
             continue
         os.replace(tmp, so)
         done[name] = (time.perf_counter() - t0, log)
@@ -93,7 +108,8 @@ def build_all(names=KERNELS) -> dict[str, tuple[float, str]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built on first use."""
+    """The library ``name`` (a kernel or a host library), built on first
+    use."""
     lib = _libs.get(name)
     if lib is None:
         build_all((name,))
@@ -102,38 +118,9 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _host_so_path(name: str) -> str:
-    h = hashlib.sha256()
-    with open(os.path.join(_SRC, f"{name}.cpp"), "rb") as f:
-        h.update(f.read())
-    h.update(" ".join((CXX, *CXX_FLAGS)).encode())
-    return os.path.join(_BUILD, f"{name}_{h.hexdigest()[:16]}.so")
-
-
-def build_host(name: str) -> float | None:
-    """Compile the host library ``csrc/<name>.cpp`` with ``CXX`` unless it
-    is built; returns the seconds it took, or None when it was built
-    already. Raises RuntimeError with the compiler's output when the build
-    fails (OSError when the compiler is missing)."""
-    so = _host_so_path(name)
-    if os.path.exists(so):
-        return None
-    os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    r = subprocess.run([CXX, *CXX_FLAGS, os.path.join(_SRC, f"{name}.cpp"), "-o", tmp],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"{CXX} failed for {name}:\n{r.stdout}{r.stderr}")
-    os.replace(tmp, so)
-    return time.perf_counter() - t0
-
-
 def _load_qem() -> ctypes.CDLL:
-    lib = _libs.get("qem")
-    if lib is None:
-        build_host("qem")
-        lib = ctypes.CDLL(_host_so_path("qem"))
+    lib = load("qem")
+    if lib.qem_decimate.argtypes is None:
         lib.qem_decimate.restype = ctypes.c_int
         lib.qem_decimate.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
@@ -142,7 +129,6 @@ def _load_qem() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
         ]
-        _libs["qem"] = lib
     return lib
 
 
