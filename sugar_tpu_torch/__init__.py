@@ -10,9 +10,12 @@ Ported so far: the render path (preprocess -> fused binning -> dup gather
 -> tile compositing), the 3DGS and mesh PLY formats, the Gaussian model,
 vanilla 3DGS training (the compositing backward and the gradient
 segment-sum), scene loading, coarse SuGaR, coarse mesh extraction
-(``meshing/``, with the host C++ QEM decimation of ``csrc/qem.cpp``) and
-mesh-bound refinement (``refine/``). The texture bake is next; see
-ROADMAP.md.
+(``meshing/``, with the host C++ QEM decimation of ``csrc/qem.cpp``),
+mesh-bound refinement and the texture bake (``refine/``, ``io/obj.py``,
+``io/png.py``), evaluation (``eval/``), the whole pipeline
+(``pipeline.py``) with its entry points (``scripts/``), and the viewer
+and profiling auxiliaries. The oracle render modes and the multi-device
+paths are next; see ROADMAP.md.
 
 Importing the package builds nothing and needs neither a GPU nor ``nvcc``.
 """

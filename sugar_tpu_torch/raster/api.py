@@ -21,8 +21,12 @@ kernel (K3).
 
 from __future__ import annotations
 
+import os
+import tempfile
+import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from sugar_tpu_torch.raster import common as rc
@@ -65,6 +69,7 @@ def rasterize_gaussians(
     tile_cap: int | None = None,
     cap_a: int = 4,
     big_cap: int | None = None,
+    debug: bool = False,
 ) -> dict[str, Any]:
     """Render one view on the device of ``means3d``. Returns dict(image
     (H,W,C), radii, final_T, n_contrib) plus the overflow diagnostics.
@@ -73,6 +78,14 @@ def rasterize_gaussians(
     on covered tile rects) defaults to max(16, dup_capacity // N); excess
     rects are dropped and counted in ``bin_overflow`` (or let
     ``raster.adaptive.render_adaptive`` grow the caps).
+
+    ``debug``: the analog of the CUDA rasterizer's debug flag
+    (diff_gaussian_rasterization/__init__.py:83-90): after the render, the
+    host checks every input and the output image for non-finite values
+    and, on failure, writes an ``.npz`` input snapshot to
+    ``$SUGAR_TPU_SNAPSHOT_DIR`` (default: the temporary directory) for
+    offline forwarding, as the JAX package does. Only this check reads the
+    render back to the host.
     """
     resolve_mode(mode)
     prep = preprocess(
@@ -99,4 +112,25 @@ def rasterize_gaussians(
         max_per_tile=k_max, cap_a=cap_a, big_cap=big_cap,
     )
     out["radii"] = prep.radius
+    if debug:
+        _debug_snapshot(dict(
+            means3d=means3d, opacities=opacities, scales=scales, quaternions=quaternions,
+            colors=colors, shs=shs, image=out["image"],
+        ))
     return out
+
+
+def _debug_snapshot(arrays: dict) -> None:
+    """Host-side finiteness check + input snapshot dump (debug=True)."""
+    host = {k: v.detach().cpu().numpy() for k, v in arrays.items() if v is not None}
+    bad = [k for k, v in host.items() if not np.isfinite(v).all()]
+    if not bad:
+        return
+    out_dir = os.environ.get("SUGAR_TPU_SNAPSHOT_DIR", tempfile.gettempdir())
+    path = os.path.join(out_dir, f"sugar_tpu_snapshot_{int(time.time())}.npz")
+    np.savez_compressed(path, **host)
+    print(
+        f"[sugar_tpu debug] non-finite values in {bad}; "
+        f"input snapshot written to {path} (forward it in a bug report, "
+        f"as with the CUDA rasterizer's snapshot_fw.dump)"
+    )

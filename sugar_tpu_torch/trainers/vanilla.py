@@ -30,13 +30,14 @@ from sugar_tpu_torch.models.gaussians import (
     GaussianParams,
     create_from_pcd,
 )
-from sugar_tpu_torch.models.render import render_params
+from sugar_tpu_torch.models.render import render_model, render_params
 from sugar_tpu_torch.raster import adaptive
 from sugar_tpu_torch.raster.common import clip
 from sugar_tpu_torch.trainers import optimizer as opt
 from sugar_tpu_torch.trainers.schedule import CameraSchedule, iteration_generator
 from sugar_tpu_torch.utils import checkpoint as ckpt
 from sugar_tpu_torch.utils import losses
+from sugar_tpu_torch.viewer.network_gui import camera_from_message
 
 _LOGGED_OVERFLOW = ("bin_overflow", "big_overflow", "cap_overflow", "tile_overflow")
 
@@ -138,6 +139,7 @@ def train_vanilla_3dgs(
     checkpoint_dir: str | None = None,
     resume: bool = True,
     network_gui=None,
+    source_path: str = "",
     device: str | torch.device = "cuda",
 ) -> TrainerState:
     """Run the vanilla 3DGS optimization on ``device`` (the given model's
@@ -152,14 +154,12 @@ def train_vanilla_3dgs(
     uninterrupted run (bit-exact on the CPU; on CUDA the backward's
     scatter-adds sum in any order).
 
-    Not ported yet (ROADMAP.md): the ``network_gui`` viewer
-    (``source_path``); passing it raises. The JAX signature's unused
-    ``eval_cameras``/``eval_images`` are left out."""
-    if network_gui is not None:
-        raise NotImplementedError(
-            "network_gui is not ported to sugar_tpu_torch yet; see ROADMAP.md "
-            "(queue 1, slice 6: viewer/network_gui.py)"
-        )
+    With ``network_gui`` (a ``viewer.network_gui.NetworkGUI``), each
+    iteration serves one protocol round to a connected viewer: a render of
+    the live model from the viewer's camera (reference
+    gaussian_splatting/train.py:52-65), with ``source_path`` in the reply.
+    The JAX signature's unused ``eval_cameras``/``eval_images`` are left
+    out."""
     if model is None:
         model = create_from_pcd(points, colors, cfg.capacity, sh_degree=cfg.sh_degree,
                                 device=device)
@@ -194,7 +194,18 @@ def train_vanilla_3dgs(
     hot_until = start_iteration + 50
     gt_cache: dict[int, torch.Tensor] = {}
 
+    @torch.no_grad()
+    def _gui_render(msg: dict):
+        """Render the live model for an interactive-viewer poll."""
+        cam = camera_from_message(msg, device=dev)
+        live = dataclasses.replace(model, params=params, alive=alive)
+        return render_model(live, cam, dup_capacity=cap_state.caps.dup_capacity,
+                            k_max=cap_state.caps.k_max)["image"]
+
     for it in range(start_iteration, cfg.iterations):
+        if network_gui is not None:
+            # One protocol round per iteration while a viewer is connected.
+            network_gui.poll(_gui_render, training_done=False, source_path=source_path)
         active_deg = min(it // cfg.sh_warmup_every, cfg.sh_degree)
         skey = (active_deg, cap_state.key())
         if skey not in step_cache:

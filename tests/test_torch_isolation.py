@@ -44,7 +44,13 @@ def test_port_has_the_slice_modules():
               "models.densifier", "utils.checkpoint", "io.colmap", "io.datasets",
               "fields.knn", "fields.density", "fields.regularizers", "fields.normals",
               "trainers.coarse", "meshing.poisson", "meshing.meshops", "meshing.levelset",
-              "meshing.extract", "meshing.ablations", "refine.bound", "refine.trainer"):
+              "meshing.extract", "meshing.ablations", "refine.bound", "refine.trainer",
+              "io.png", "io.obj", "io.blender_interop", "raster.binning", "refine.mesh_raster",
+              "refine.texture", "refine.extract_textured", "eval.metrics", "eval.parity",
+              "utils.profiling", "viewer.network_gui", "viewer.export", "pipeline",
+              "scripts.train_full_pipeline", "scripts.extract_mesh", "scripts.train_refined",
+              "scripts.extract_refined_mesh_with_texture", "scripts.metrics",
+              "scripts.run_viewer"):
         assert f"sugar_tpu_torch.{m}" in mods, m
 
 
@@ -77,7 +83,8 @@ def test_importing_builds_nothing():
         "import sugar_tpu_torch.io.datasets\n"
         "before = sorted(os.listdir(n._BUILD)) if os.path.isdir(n._BUILD) else []\n"
         "import sugar_tpu_torch.meshing.extract, sugar_tpu_torch.meshing.ablations\n"
-        "import sugar_tpu_torch.refine.trainer\n"
+        "import sugar_tpu_torch.refine.trainer, sugar_tpu_torch.pipeline\n"
+        "import sugar_tpu_torch.scripts.metrics, sugar_tpu_torch.viewer.network_gui\n"
         "after = sorted(os.listdir(n._BUILD)) if os.path.isdir(n._BUILD) else []\n"
         "assert before == after, (before, after)\n"
         "assert 'PIL' not in sys.modules\n"

@@ -285,11 +285,14 @@ def test_train_step_stats_match_jax():
 
 
 def test_trainer_refuses_unported_options():
-    cfg = vanilla.TrainConfig(iterations=1, capacity=64)
+    """The oracle render modes are not ported (the viewer is: see
+    tests/test_torch_aux.py)."""
+    cfg = vanilla.TrainConfig(iterations=1, capacity=64, sh_degree=0, render_mode="tiled")
+    pts = np.random.default_rng(0).normal(size=(4, 3)).astype(np.float32) + [0, 0, 3]
+    cam = make_camera(np.eye(3), np.zeros(3), 1.0, 1.0, 16, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vanilla.train_vanilla_3dgs([], [], np.zeros((4, 3), np.float32),
-                                   np.zeros((4, 3), np.float32), 1.0, cfg, device="cpu",
-                                   network_gui=object())
+        vanilla.train_vanilla_3dgs([cam], [np.zeros((16, 16, 3), np.float32)], pts,
+                                   np.zeros((4, 3), np.float32), 1.0, cfg, device="cpu")
 
 
 def test_train_vanilla_3dgs_on_cpu_fits_and_densifies():
