@@ -11,8 +11,9 @@ the every-8th held-out split (the reference's split, gs_model.py:133-143).
 The numpy draws are the JAX package's, call for call, so both packages
 build the same scene. The scene lives on ``device``, and
 :func:`eval_gaussian_ply` renders on the scene's cameras' device.
-``render_mode`` defaults to ``"auto"`` (the fused path; the port has no
-``"tiled"`` oracle mode yet).
+``render_mode`` defaults to ``"auto"`` (the fused path), where the JAX
+package defaults to its ``"tiled"`` oracle mode; the port renders that
+mode too when asked.
 """
 
 from __future__ import annotations

@@ -91,8 +91,8 @@ def _single_device(cfg: PipelineConfig) -> None:
     if cfg.devices > 1 or cfg.mesh_gauss is not None:
         raise NotImplementedError(
             f"devices={cfg.devices}, mesh_gauss={cfg.mesh_gauss}: the sharded pipeline stages "
-            "are not ported to sugar_tpu_torch yet; see ROADMAP.md (queue 1, slice 7: "
-            "multi-device)")
+            "are not ported to sugar_tpu_torch yet; see ROADMAP.md (queue 1, the parallel/ "
+            "slice)")
 
 
 def _device(scene: ds.SceneData) -> torch.device:
@@ -221,9 +221,8 @@ def _state_path(refined_ply: str) -> str:
 
 def run_refine(cfg: PipelineConfig, scene: ds.SceneData, mesh_path: str, log_fn=print) -> str:
     """Stage 3: joint mesh + surface-Gaussian refinement (train_refined).
-    Also writes ``<refined>_state.pkl`` for the texture stage: the JAX
-    package's keys, numpy values (faces int32, as the JAX package writes
-    them), so either package's ``run_texture`` reads it."""
+    Also writes ``<refined>_state.pkl`` (``save_refined_state``) for the
+    texture stage."""
     _single_device(cfg)
     out = os.path.join(
         cfg.output_dir,
@@ -258,11 +257,19 @@ def run_refine(cfg: PipelineConfig, scene: ds.SceneData, mesh_path: str, log_fn=
     )
     os.makedirs(os.path.dirname(out), exist_ok=True)
     export_refined_ply(params, bm, out)
+    save_refined_state(params, bm, _state_path(out))
+    return out
+
+
+def save_refined_state(params, bm, path: str) -> None:
+    """Write a refined state as ``run_refine`` does: the JAX package's keys,
+    numpy values (faces int32, as the JAX package writes them), so either
+    package's ``load_refined_state`` reads it."""
 
     def host(x):
         return x.detach().cpu().numpy()
 
-    with open(_state_path(out), "wb") as f:
+    with open(path, "wb") as f:
         pickle.dump(
             dict(
                 vertices=host(params.vertices),
@@ -277,7 +284,6 @@ def run_refine(cfg: PipelineConfig, scene: ds.SceneData, mesh_path: str, log_fn=
             ),
             f,
         )
-    return out
 
 
 def run_texture(cfg: PipelineConfig, scene: ds.SceneData, refined_ply: str, log_fn=print) -> str:

@@ -83,3 +83,15 @@ def gather_dup(
     needs no per-Gaussian counts: the segments come from the sorted ids.
     """
     return GatherDup.apply(packed, gid, n, grads_exact, live_rows)
+
+
+def gather_dup_searchsorted(
+    packed: torch.Tensor, gid: torch.Tensor, n: int, live_rows: int
+) -> torch.Tensor:
+    """``pallas_render.gather_dup_searchsorted``: the gather whose backward
+    is correct for ANY multiset of ``gid`` (a Gaussian's slots split across
+    bands, with no per-band counts). ``GatherDup``'s backward already finds
+    the segments from the sorted ids alone, so this is the same gather with
+    its gradient always exact (K3 on the card)."""
+    exact = torch.ones((), dtype=torch.bool, device=packed.device)
+    return GatherDup.apply(packed, gid, n, exact, live_rows)

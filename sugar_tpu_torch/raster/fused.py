@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from sugar_tpu_torch.raster import common as rc
+from sugar_tpu_torch.raster.binning import depth_order, tile_ranges
 from sugar_tpu_torch.raster.dup_gather import gather_dup, pack_params, pad_rows
 from sugar_tpu_torch.raster.preprocess import Preprocessed
 from sugar_tpu_torch.raster.tile_composite import C_CHUNK, tile_composite
@@ -220,12 +221,8 @@ def bin_fused(
     cap_a = min(cap_a, tile_cap)
     big_cap = min(big_cap, n)
 
-    # Depth rank per Gaussian. The stable sort of ALL n depths (culled and
-    # padded ones included) keeps equal depths in index order. lax.sort
-    # orders -0.0 before +0.0 where torch.sort keeps them tied; only culled
-    # Gaussians (depth <= Z_CULL) can hold either, and they emit no dup
-    # slot, so the order of the emitted slots is the same.
-    gsort = torch.sort(prep.depth, stable=True).indices
+    # Depth rank per Gaussian, from the stable sort of ALL n depths.
+    gsort = depth_order(prep.depth)
     rank = torch.empty_like(gsort)
     rank[gsort] = torch.arange(n, device=dev)
 
@@ -260,12 +257,7 @@ def bin_fused(
         sorted_tile = sorted_tile[:d_pad]
         gid_s = gid_s[:d_pad]
 
-    # Per-tile ranges.
-    bounds = torch.searchsorted(
-        sorted_tile, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev), side="left"
-    ).to(torch.int32)
-    tile_start = bounds[:num_tiles].contiguous()
-    tile_count = (bounds[1:] - bounds[:num_tiles]).contiguous()
+    tile_start, tile_count = tile_ranges(sorted_tile, num_tiles)
 
     rect_overflow = torch.clamp(prep.tiles_touched - tile_cap, min=0).sum(dtype=torch.int64)
     cap_overflow = torch.clamp(num_rendered - capacity, min=0)
@@ -320,6 +312,21 @@ def assemble_tiles(x: torch.Tensor, settings: rc.RasterSettings) -> torch.Tensor
     return x[: settings.image_height, : settings.image_width]
 
 
+def composite_outputs(img_t, final_t, n_contrib, tile_count, max_chunks: int,
+                      settings: rc.RasterSettings) -> dict:
+    """``tile_composite``'s tile-major outputs as images, with the deepest
+    tile's count and its excess over the composited max_chunks * 256
+    slots (the k_max a re-render needs, and what this one dropped)."""
+    max_tile_count = tile_count.max()
+    return dict(
+        image=assemble_tiles(img_t, settings),
+        final_T=assemble_tiles(final_t[..., None], settings)[..., 0],
+        n_contrib=assemble_tiles(n_contrib[..., None], settings)[..., 0],
+        tile_overflow=torch.clamp(max_tile_count - max_chunks * C_CHUNK, min=0),
+        max_tile_count=max_tile_count,
+    )
+
+
 def render_fused(
     prep: Preprocessed,
     settings: rc.RasterSettings,
@@ -347,16 +354,8 @@ def render_fused(
         b["tile_start"], b["tile_count"], dup_data, settings.bg, settings.tiles_x, ch, max_chunks
     )
 
-    image = assemble_tiles(img_t, settings)
-    final_t = assemble_tiles(final_t[..., None], settings)[..., 0]
-    n_contrib = assemble_tiles(n_contrib[..., None], settings)[..., 0]
-    max_tile_count = b["tile_count"].max()
     return dict(
-        image=image,
-        final_T=final_t,
-        n_contrib=n_contrib,
-        tile_overflow=torch.clamp(max_tile_count - max_chunks * C_CHUNK, min=0),
-        max_tile_count=max_tile_count,
+        **composite_outputs(img_t, final_t, n_contrib, b["tile_count"], max_chunks, settings),
         bin_overflow=b["overflow"],
         big_overflow=b["big_overflow"],
         num_big=b["num_big"],

@@ -50,7 +50,10 @@ def test_port_has_the_slice_modules():
               "utils.profiling", "viewer.network_gui", "viewer.export", "pipeline",
               "scripts.train_full_pipeline", "scripts.extract_mesh", "scripts.train_refined",
               "scripts.extract_refined_mesh_with_texture", "scripts.metrics",
-              "scripts.run_viewer"):
+              "scripts.run_viewer", "raster.composite", "raster.reference_impl",
+              "raster.tiled", "raster.twopass", "models.compositor", "scripts.render",
+              "scripts.train_vanilla_gs", "scripts.demo_hybrid", "scripts.compose_animation",
+              "scripts.run_parity", "scripts.full_eval", "scripts.convert"):
         assert f"sugar_tpu_torch.{m}" in mods, m
 
 
@@ -74,8 +77,9 @@ def test_imports_without_jax_or_sugar_tpu():
 
 def test_importing_builds_nothing():
     """The kernel libraries and the host QEM library are built and loaded on
-    first use, not at import, and the scene loaders import Pillow only when
-    they read an image."""
+    first use, not at import, and neither the scene loaders nor any entry
+    point imports Pillow (the loaders import it only when they read an
+    image; the entry points write PNGs through io/png.py)."""
     code = (
         "import sys, os\n"
         "import sugar_tpu_torch.raster.tile_composite as t, sugar_tpu_torch.native as n\n"
@@ -85,6 +89,8 @@ def test_importing_builds_nothing():
         "import sugar_tpu_torch.meshing.extract, sugar_tpu_torch.meshing.ablations\n"
         "import sugar_tpu_torch.refine.trainer, sugar_tpu_torch.pipeline\n"
         "import sugar_tpu_torch.scripts.metrics, sugar_tpu_torch.viewer.network_gui\n"
+        "from sugar_tpu_torch.scripts import render, train_vanilla_gs, demo_hybrid\n"
+        "from sugar_tpu_torch.scripts import compose_animation, run_parity, full_eval, convert\n"
         "after = sorted(os.listdir(n._BUILD)) if os.path.isdir(n._BUILD) else []\n"
         "assert before == after, (before, after)\n"
         "assert 'PIL' not in sys.modules\n"

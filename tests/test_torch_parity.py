@@ -4,9 +4,10 @@ The procedural blob scene, degraded init, vanilla -> coarse-SDF -> mesh ->
 refine through the port's pipeline API on the CPU, PSNR on the every-8th
 held-out split, held to the JAX test's floors and stage-ordering
 invariants (tests/test_parity.py:87-102). The port renders with
-``render_mode="auto"`` (the fused path's plain version on the CPU); the
-JAX test's ``"tiled"`` oracle mode is not ported yet. ``chip_smoke.py``
-``[13]`` runs the same configuration on the card.
+``render_mode="auto"`` (the fused path's plain version on the CPU), where
+the JAX test renders with its ``"tiled"`` oracle mode (which the port has
+too, ``raster/tiled.py``). ``chip_smoke.py`` ``[13]`` runs the same
+configuration on the card.
 """
 
 import numpy as np

@@ -6,8 +6,6 @@ Tolerances: image and final_T atol 1e-5; n_contrib, radii and every
 overflow counter exactly equal. PLY files cross between the packages.
 """
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,8 +24,7 @@ from sugar_tpu_torch.interop import model_from_numpy, params_from_numpy
 from sugar_tpu_torch.models import gaussians as tgm
 from sugar_tpu_torch.models.render import render_model, render_params
 from sugar_tpu_torch.raster import adaptive
-from sugar_tpu_torch.raster.api import rasterize_gaussians, resolve_mode
-from sugar_tpu_torch.raster.common import from_camera
+from sugar_tpu_torch.raster.api import resolve_mode
 
 torch.set_num_threads(2)
 
@@ -196,18 +193,21 @@ def test_render_params_equals_render_model():
 
 
 def test_modes():
-    assert resolve_mode("auto") == "pallas" and resolve_mode("pallas") == "pallas"
-    for mode in ("reference", "tiled", "pallas_twopass"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            resolve_mode(mode)
+    """Every mode of the JAX package resolves to itself and renders JAX's
+    image (its fused Pallas render, in interpret mode): the oracle modes
+    and the two-pass path agree with it at 1e-5, n_contrib equal."""
+    assert resolve_mode("auto") == "pallas"
+    for mode in ("pallas", "reference", "tiled", "pallas_twopass"):
+        assert resolve_mode(mode) == mode
     with pytest.raises(ValueError):
         resolve_mode("bogus")
+    j, _ = main_pair()
     d, alive = model_arrays()
     m = model_from_numpy(d, alive, 3, device="cpu")
-    settings = dataclasses.replace(from_camera(make_camera(**CAM, device="cpu")), sh_degree=3)
-    with pytest.raises(NotImplementedError):
-        rasterize_gaussians(m.params.xyz, m.opacities, settings, scales=m.scales,
-                            quaternions=m.quaternions, shs=m.sh, mode="tiled")
+    for mode in ("reference", "tiled", "pallas_twopass"):
+        t = port_render(m, mode=mode, **RENDER_KW)
+        assert_same_render(t, j)
+        np.testing.assert_array_equal(t["radii"].numpy(), np.asarray(j["radii"]))
 
 
 def test_interop_requires_every_field():

@@ -45,7 +45,8 @@ def tie_details(kern, plain, limit: int = 4) -> list[dict]:
     """The first ``limit`` tie pixels' n_contrib, final_T and image change."""
     dn = kern.n_contrib - plain.n_contrib
     out = []
-    for t, p in torch.nonzero(chip_smoke.tie_mask(kern, plain))[:limit].tolist():
+    tie = chip_smoke.tie_mask(kern.n_contrib, plain.n_contrib, kern.final_t, plain.final_t)
+    for t, p in torch.nonzero(tie)[:limit].tolist():
         out.append(dict(tile=t, pixel=p, n_contrib_kernel_minus_plain=int(dn[t, p]),
                         final_t_kernel=float(kern.final_t[t, p]), final_t_plain=float(plain.final_t[t, p]),
                         img_diff=float((kern.img[t, p] - plain.img[t, p]).abs().max()),
@@ -82,7 +83,7 @@ def main(argv=None) -> int:
             kern = tile_composite_cuda(*fw)
             plain = tile_composite_plain(*fw)
         d = chip_smoke.compare(kern, plain, fw)
-        old_ok = (chip_smoke.k1_abs_err(d) <= chip_smoke.ATOL_IMAGE and d["nch_mismatch"] == 0
+        old_ok = (chip_smoke.abs_err(d) <= chip_smoke.ATOL_IMAGE and d["nch_mismatch"] == 0
                   and d["n_contrib_mismatch"] <= 1e-4 * d["pixels"] and d["n_contrib_max_diff"] <= 1)
         new_ok = chip_smoke.compare_ok(d)
         old_fail += not old_ok
