@@ -116,8 +116,25 @@ together), then:
    card against CPU; ``scripts.render``, ``compose_animation`` and
    ``train_vanilla_gs`` on 13's scene and artifacts, every output loaded
    back;
-   then prints the kernels line (launches summed over 7, 10, 11, 12, 13
-   and 14), the card line, and last ``{"ok": true, "device": {...}}`` —
+15. the multi-device paths (``sugar_tpu_torch/parallel``): in one run of
+   4 ranks sharing the card (``gloo``, collectives staged through pinned
+   host buffers), (a) the 1M model of 4 tile-sharded over the 8 ring views
+   (each image held to the fused render, overflow 0), (b) its fwd+bwd at
+   view 0 (the five inputs' gradients held to the fused path's; K1, K2, K3
+   held to their plain versions on each rank's band), (d) the (2, 2)
+   sharded and the world-4 tile-sharded vanilla steps on 7's scene held to
+   the single-device step and timed, (e) the ring KNN on 9's pruned model
+   held to the single-device KNN and a (2, 2) coarse 'sdf' step, (f) a
+   (2, 2) refine step on 10's mesh, with the plain kernels (and, on the
+   tile-sharded paths, the fused path) made to raise; (c) view 0 on NCCL
+   (world 1, and one rank per card with several cards); (g) the level set
+   of 4 of 10's cameras over 4 ranks against one; (h) the pipeline with
+   devices=4 on 13's scene; in (g) and (h) every rank refuses the plain
+   K1-K3 and reports its launches, each sharded stage's held non-zero.
+   Ranks sharing one card measure correctness and host staging, not
+   multi-card scaling;
+   then prints the kernels line (launches summed over 7, 10, 11, 12, 13,
+   14 and 15), the card line, and last ``{"ok": true, "device": {...}}`` —
    only when every check passed.
 
 Each path runs with the launch counts set to 0 just before it and read
@@ -141,6 +158,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sugar_tpu_torch import native
 from sugar_tpu_torch.core.cameras import make_camera
@@ -159,7 +177,7 @@ from sugar_tpu_torch.io.png import read_png, write_png
 from sugar_tpu_torch.meshing import levelset, meshops, poisson
 from sugar_tpu_torch.meshing.extract import ExtractConfig, extract_mesh_from_coarse_model
 from sugar_tpu_torch.models.compositor import GaussianSet, composite_render
-from sugar_tpu_torch.models.densifier import prune_low_opacity
+from sugar_tpu_torch.models.densifier import DensifyStats, prune_low_opacity, update_stats
 from sugar_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianParams, load_ply, save_ply
 from sugar_tpu_torch.models.render import render_model, render_params
 from sugar_tpu_torch.pipeline import (
@@ -172,6 +190,19 @@ from sugar_tpu_torch.pipeline import (
     run_vanilla,
     save_refined_state,
 )
+from sugar_tpu_torch.parallel import comm
+from sugar_tpu_torch.parallel.coarse import make_sharded_coarse_step
+from sugar_tpu_torch.parallel.knn import knn_sharded
+from sugar_tpu_torch.parallel.launch import run_ranks, to_device
+from sugar_tpu_torch.parallel.mesh import gather_params, make_mesh, shard_params, world_axis
+from sugar_tpu_torch.parallel.meshing import collect_surface_points_sharded
+from sugar_tpu_torch.parallel.refine import (
+    gather_bound,
+    make_sharded_refine_step,
+    shard_bound_state,
+)
+from sugar_tpu_torch.parallel.render import gather_band, render_sharded, shard_of
+from sugar_tpu_torch.parallel.train import make_sharded_train_step, make_tile_sharded_train_step
 from sugar_tpu_torch.raster import adaptive
 from sugar_tpu_torch.raster import api as raster_api
 from sugar_tpu_torch.raster import common as rc
@@ -201,6 +232,7 @@ from sugar_tpu_torch.refine.mesh_raster import rasterize_mesh
 from sugar_tpu_torch.refine.texture import bake_texture, build_uv_atlas, render_textured_mesh
 from sugar_tpu_torch.refine.trainer import (
     RefineConfig,
+    bound_adam_step,
     bound_lrs,
     export_refined_ply,
     init_bound_adam,
@@ -218,7 +250,7 @@ from sugar_tpu_torch.trainers.coarse import CoarseConfig, make_coarse_step, trai
 from sugar_tpu_torch.trainers.schedule import iteration_generator
 from sugar_tpu_torch.trainers.vanilla import TrainConfig, make_train_step, train_vanilla_3dgs
 from sugar_tpu_torch.utils import checkpoint as ckpt
-from sugar_tpu_torch.utils.losses import psnr
+from sugar_tpu_torch.utils.losses import psnr, rgb_loss_l1_dssim
 
 KERNELS = (tile_composite_cuda, tile_composite_bwd_cuda, segment_sum_cuda)
 
@@ -2771,11 +2803,14 @@ def renders_ok(d: dict, atol: float) -> bool:
 
 
 @contextlib.contextmanager
-def no_fallback():
-    """Inside the block the plain versions of K1, K2 and K3 and the fused
-    path raise, so a CUDA render that reaches any of them fails."""
+def no_fallback(refuse_fused: bool = True):
+    """Inside the block the plain versions of K1, K2 and K3 and (unless
+    ``refuse_fused`` is False) the fused path raise, so a CUDA render that
+    reaches any of them fails."""
     slots = [(tc_mod, "tile_composite_plain"), (tc_mod, "tile_composite_bwd_plain"),
-             (segsum_mod, "segment_sum_plain"), (raster_api, "render_fused")]
+             (segsum_mod, "segment_sum_plain")]
+    if refuse_fused:
+        slots.append((raster_api, "render_fused"))
     originals = [getattr(mod, name) for mod, name in slots]
 
     def refuse(name):
@@ -2790,6 +2825,25 @@ def no_fallback():
     finally:
         for (mod, name), orig in zip(slots, originals):
             setattr(mod, name, orig)
+
+
+# [15] (g) and (h) drive the package's single-controller entry points,
+# whose ranks re-import this script as __mp_main__. While this variable is
+# set, each such rank refuses the plain K1-K3 for its whole life.
+REFUSE_PLAIN_IN_RANKS = "SUGAR_SMOKE_REFUSE_PLAIN"
+if __name__ == "__mp_main__" and os.environ.get(REFUSE_PLAIN_IN_RANKS) == "1":
+    _RANK_REFUSAL = no_fallback(refuse_fused=False)  # held: leaving it restores the plain ones
+    _RANK_REFUSAL.__enter__()
+
+
+@contextlib.contextmanager
+def plain_refused_in_ranks():
+    """The ranks started inside the block refuse the plain K1-K3."""
+    os.environ[REFUSE_PLAIN_IN_RANKS] = "1"
+    try:
+        yield
+    finally:
+        del os.environ[REFUSE_PLAIN_IN_RANKS]
 
 
 def caps_kw(caps: adaptive.RasterCaps) -> dict:
@@ -3184,6 +3238,590 @@ def phase_entry_points(check, dev, scene, artifacts) -> dict:
                 launches=tuple(sum(c[k] for c in counts.values()) for k in range(3)))
 
 
+# --- [15] the multi-device paths ----------------------------------------
+
+PAR_WORLD = 4
+PAR_GRAD_RTOL = 1e-4  # sharded vs single-device gradients, x max|g| per input
+PAR_LOSS_RTOL = 1e-4  # sharded vs single-device loss, x max(1, |loss|)
+PAR_RTOL, PAR_ATOL = 2e-3, 2e-5  # tests/test_parallel.py's 1-vs-8 device tolerance
+PAR_TIMED_STEPS = 10
+PAR_STEP_IT = 0
+LEVELSET_CAMS = 4
+PAR_LAYOUT = "4 ranks sharing one card (gloo, host-staged collectives)"
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms inside the block (warning, not
+    raising, where an op has none)."""
+    was, warn = torch.are_deterministic_algorithms_enabled(), \
+        torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def rank_checks() -> tuple[Checks, str]:
+    return Checks(), f"[15] rank {dist.get_rank()}"
+
+
+def sharded_views(check, dev, axis, model, cams, kws: list[dict], tag: str, label: str) -> dict:
+    """The tile-sharded render of each view on every rank of ``axis``, with
+    the plain kernels and the fused path refused; rank 0 then holds each
+    whole image to ``render_model``'s fused render at the same caps (the
+    tie rule) and the three overflow counters to 0."""
+    comm.reset_counters()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    outs, ms = [], []
+    with no_fallback(), torch.no_grad():
+        for cam, kw in zip(cams, kws):
+            st = dataclasses.replace(rc.from_camera(cam, device=dev), sh_degree=model.sh_degree)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            o = render_sharded(axis, model.params.xyz, model.opacities, st, scales=model.scales,
+                               quaternions=model.quaternions, shs=model.sh,
+                               alive_mask=model.alive, tile_cap=kw["tile_cap"],
+                               k_max=kw["k_max"])
+            full = {k: gather_band(o[k], axis, st) for k in ("image", "final_T", "n_contrib")}
+            e1.record()
+            torch.cuda.synchronize(dev)
+            ms.append(e0.elapsed_time(e1))
+            full.update({k: int(o[k]) for k in ("route_overflow", "tile_overflow",
+                                                 "kmax_overflow")})
+            outs.append(full)
+    res = dict(counts=launches(), bytes=comm.counters(), ms=ms,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9, errs={})
+    check(res["counts"] == (len(cams), 0, 0),
+          f"{label}: one K1 launch per view on this rank, no backward, no plain version, no "
+          f"fused path (got {res['counts']})")
+    if axis.index == 0:
+        with torch.no_grad():
+            for i, (cam, kw, out) in enumerate(zip(cams, kws, outs)):
+                ovf = {k: out[k] for k in ("route_overflow", "tile_overflow", "kmax_overflow")}
+                d = compare_renders(out, render_model(model, cam, **kw))
+                print(f"{tag} {label}, view {i}: {json.dumps(ovf)}; vs fused {json.dumps(d)}",
+                      flush=True)
+                check(all(v == 0 for v in ovf.values()), f"{label} view {i}: the three "
+                      "overflow counters are 0")
+                check(renders_ok(d, ATOL_IMAGE), f"{label} view {i} equals the fused render "
+                      f"(tie rule, {ATOL_IMAGE} elsewhere; n_contrib equal off the ties)")
+                res["errs"]["image"] = max(res["errs"].get("image", 0.0), abs_err(d))
+    return res
+
+
+def sharded_fwd_bwd(check, dev, axis, model, cam, kw: dict, tag: str) -> dict:
+    """One tile-sharded forward and backward at ``cam`` (loss sum(image^2),
+    bench.py's) with the plain kernels and the fused path refused and the
+    kernels' arguments recorded; K1, K2, K3 held to their plain versions on
+    them; rank 0 holds the gradients of the five inputs to the fused
+    path's."""
+    st = dataclasses.replace(rc.from_camera(cam, device=dev), sh_degree=model.sh_degree)
+    whole = [model.params.xyz, model.opacities, model.scales, model.quaternions, model.sh]
+    leaves = [x.detach().clone().requires_grad_(True) for x in whole]
+    reset_launches()
+    with recorded_kernel_args(keep_last=1) as recs, no_fallback():
+        o = render_sharded(axis, leaves[0], leaves[1], st, scales=leaves[2],
+                           quaternions=leaves[3], shs=leaves[4], alive_mask=model.alive,
+                           tile_cap=kw["tile_cap"], k_max=kw["k_max"])
+        loss = (gather_band(o["image"], axis, st) ** 2).sum()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize(dev)
+    counts = launches()
+    check(counts == (1, 1, 1), f"tile-sharded fwd+bwd: one launch each of K1, K2, K3 on this "
+          f"rank (got {counts})")
+    errs = check_recorded(check, recs, tag, "tile-sharded fwd+bwd, view 0 (this rank's band)")
+    recs.clear()
+    grads = [comm.all_gather(shard_of(g, axis).contiguous(), axis) for g in grads]
+    if axis.index == 0:
+        ref = [x.detach().clone().requires_grad_(True) for x in whole]
+        out = rasterize_gaussians(ref[0], ref[1], st, scales=ref[2], quaternions=ref[3],
+                                  shs=ref[4], alive_mask=model.alive, mode="pallas", **kw)
+        (out["image"] ** 2).sum().backward()
+        for name, g, r in zip(("means", "opacities", "scales", "quaternions", "shs"), grads, ref):
+            diff, scale = float((g - r.grad).abs().max()), float(r.grad.abs().max())
+            print(f"{tag} fwd+bwd gradient of {name}: max|sharded - fused| {diff:.3e}, "
+                  f"max|fused| {scale:.3e}", flush=True)
+            check(diff <= PAR_GRAD_RTOL * scale and scale > 0.0,
+                  f"tile-sharded gradient of {name} within {PAR_GRAD_RTOL} x max|g| of the "
+                  "fused path's")
+    return dict(counts=counts, errs=errs)
+
+
+def step_close(check, label: str, new, ref, lrs: dict, fields, tag: str) -> None:
+    """A sharded step's new state against the single-device step's from
+    the same state (Adam's first step, so mu = 0.1 g): the loss within
+    PAR_LOSS_RTOL, each field's gradient (mu / 0.1) within PAR_GRAD_RTOL x
+    max|g|, and its parameters within tests/test_parallel.py's rtol
+    2e-3 / atol 2e-5 wherever |g| exceeds that gradient tolerance; where
+    |g| is within it of 0 (float noise, e.g. the rotation about a
+    Gaussian's symmetry axis), Adam's eps 1e-15 turns its sign into a
+    +-lr move, and the parameter is held to 2 lr."""
+    (p, mu, loss), (rp, rmu, rloss) = new, ref
+    check(abs(loss - rloss) <= PAR_LOSS_RTOL * max(1.0, abs(rloss)),
+          f"{label}: loss {loss:.6f} within {PAR_LOSS_RTOL} of the single-device {rloss:.6f}")
+    for f in fields:
+        g, rg = getattr(mu, f) / 0.1, getattr(rmu, f) / 0.1
+        gscale = float(rg.abs().max()) if rg.numel() else 0.0
+        gdiff = float((g - rg).abs().max()) if rg.numel() else 0.0
+        tol = PAR_GRAD_RTOL * gscale
+        noise = rg.abs() <= tol
+        a, b = getattr(p, f), getattr(rp, f)
+        lr = float(lrs[f](PAR_STEP_IT))
+        far = ((a - b).abs() > PAR_ATOL + PAR_RTOL * b.abs()) & ~noise
+        near = ((a - b).abs() > 2 * lr * (1 + 1e-5)) & noise
+        print(f"{tag} {label} {f}: max|dg| {gdiff:.3e} of max|g| {gscale:.3e}; params off "
+              f"tolerance {int(far.sum())}, noise-level gradients {int(noise.sum())} of "
+              f"{rg.numel()} (off 2 lr: {int(near.sum())})", flush=True)
+        check(gdiff <= tol and not bool(far.any()) and not bool(near.any()),
+              f"{label}: {f} gradient and parameters match the single-device step")
+
+
+def vanilla_step_reference(params, alive, cams, gts, lrs, optim, deg, kw, dev):
+    """The single-device step of the mean loss over ``cams`` (the JAX
+    sharded step's semantics): (params, mu, loss, stats)."""
+    leaves = [getattr(params, f).detach().clone().requires_grad_(True) for f in PARAM_FIELDS]
+    probe = torch.zeros((params.xyz.shape[0], 2), device=dev, requires_grad=True)
+    bg = torch.zeros(3, device=dev)
+    loss, grads, radii = 0.0, None, []
+    for cam, gt in zip(cams, gts):  # one view's graph at a time
+        out = render_params(GaussianParams(**dict(zip(PARAM_FIELDS, leaves))), alive, cam, deg,
+                            bg, ndc_offset=probe, **kw)
+        lv = rgb_loss_l1_dssim(rc.clip(out["image"], 0.0, 1.0), gt, 0.2) / len(cams)
+        g = torch.autograd.grad(lv, leaves + [probe], allow_unused=True)
+        g = [torch.zeros_like(x) if gi is None else gi for x, gi in zip(leaves + [probe], g)]
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        loss += float(lv)
+        radii.append(out["radii"])
+    p, a = opt.adam_step(params, GaussianParams(**dict(zip(PARAM_FIELDS, grads[:-1]))),
+                         opt.init_adam(params), PAR_STEP_IT, lrs, optim)
+    stats = update_stats(DensifyStats.zeros(params.xyz.shape[0], device=dev), grads[-1],
+                         torch.stack(radii).amax(0))
+    return (p, a.mu, loss), stats
+
+
+def timed_steps(step, state: list, args: tuple) -> list[float]:
+    """ms of PAR_TIMED_STEPS vanilla steps (CUDA events on this rank), each
+    from the last one's (params, adam, stats); ``state`` is (params, alive,
+    adam, stats)."""
+    p, alive, a, st = state
+    ms = []
+    for _ in range(PAR_TIMED_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        p, a, st, _ = step(p, alive, a, st, *args)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return ms
+
+
+def parallel_training(check, dev, axis, data: dict, tag: str) -> dict:
+    """The (2, 2) sharded step and the world-4 tile-sharded step on [7]'s
+    scene from its perturbed start, each held to the single-device step
+    after one step and timed over PAR_TIMED_STEPS; the kernels held to
+    their plain versions on the tile-sharded step's arguments."""
+    fields, alive_np = pad_fields(train_scene_fields(TRAIN_N, TRAIN_SEED), TRAIN_CAPACITY)
+    targets = [torch.as_tensor(t, device=dev) for t in data["targets"][:2]]
+    perturbed = dict(fields)
+    noise = np.random.default_rng(TRAIN_SEED + 1).normal(0, 0.5, fields["sh_dc"].shape)
+    perturbed["sh_dc"] = (fields["sh_dc"] + np.where(alive_np[:, None], noise, 0)).astype(np.float32)
+    model = model_from_numpy(perturbed, alive_np, 0, device=dev)
+    cams = ring_cameras(VIEWS, dev)[:2]
+    optim = opt.OptimConfig(feature_lr=0.02)
+    lrs = opt.group_lrs(optim, spatial_lr_scale=1.0)
+    kw = dict(dup_capacity=TRAIN_CAPS.dup_capacity, k_max=TRAIN_CAPS.k_max)
+    cap = TRAIN_CAPACITY
+    res = {}
+
+    mesh = make_mesh(2, 2, device=dev)
+    step = make_sharded_train_step(mesh, lrs, optim, 0, **kw)
+    state = [shard_params(x, mesh.gauss) for x in (model.params, model.alive,
+                                                   opt.init_adam(model.params),
+                                                   DensifyStats.zeros(cap, device=dev))]
+    reset_launches()
+    with no_fallback(refuse_fused=False):
+        p, a, stats, aux = step(*state, cams, targets, PAR_STEP_IT)
+        torch.cuda.synchronize()
+    res["counts_2x2"] = launches()
+    check(res["counts_2x2"] == (1, 1, 1), f"(2, 2) step: one launch each of K1, K2, K3 on this "
+          f"rank (got {res['counts_2x2']})")
+    whole = (gather_params(p, mesh.gauss), gather_params(a.mu, mesh.gauss), float(aux["loss"]))
+    whole_stats = gather_params(stats, mesh.gauss)
+    if axis.index == 0:
+        ref, rstats = vanilla_step_reference(model.params, model.alive, cams, targets, lrs,
+                                             optim, 0, kw, dev)
+        step_close(check, "(2, 2) vanilla step", whole, ref, lrs, PARAM_FIELDS, tag)
+        check(torch.equal(whole_stats.denom, rstats.denom)
+              and torch.equal(whole_stats.max_radii, rstats.max_radii)
+              and float((whole_stats.grad_accum - rstats.grad_accum).abs().max())
+              <= PAR_GRAD_RTOL * float(rstats.grad_accum.abs().max()),
+              "(2, 2) vanilla step: densify statistics (the norm of the summed ndc gradient, "
+              "the max radii over the views) match the single-device step's")
+    res["ms_2x2"] = timed_steps(step, state, (cams, targets, PAR_STEP_IT))
+
+    tstep = make_tile_sharded_train_step(axis, lrs, optim, 0, tile_cap=16, k_max=kw["k_max"])
+    state = [shard_params(x, axis) for x in (model.params, model.alive,
+                                             opt.init_adam(model.params),
+                                             DensifyStats.zeros(cap, device=dev))]
+    reset_launches()
+    with recorded_kernel_args(keep_last=1) as recs, no_fallback():
+        p, a, stats, aux = tstep(*state, cams[0], targets[0], PAR_STEP_IT)
+        torch.cuda.synchronize()
+    res["counts_tile"] = launches()
+    check(res["counts_tile"] == (1, 1, 1), f"tile-sharded step: one launch each of K1, K2, K3 "
+          f"on this rank (got {res['counts_tile']})")
+    res["errs"] = check_recorded(check, recs, tag, "tile-sharded train step (this rank's band)")
+    recs.clear()
+    ovf = {k: int(aux[k]) for k in ("route_overflow", "tile_overflow", "kmax_overflow")}
+    check(all(v == 0 for v in ovf.values()), f"tile-sharded step: overflow counters 0 {ovf}")
+    whole = (gather_params(p, axis), gather_params(a.mu, axis), float(aux["loss"]))
+    if axis.index == 0:
+        cfg = TrainConfig(sh_degree=0, capacity=cap, optim=optim)
+        caps = adaptive.RasterCaps(tile_cap=16, **kw)
+        rp, ra, _, raux = make_train_step(cfg, lrs, 0, caps)(
+            model.params, model.alive, opt.init_adam(model.params),
+            DensifyStats.zeros(cap, device=dev), cams[0], targets[0], PAR_STEP_IT)
+        step_close(check, "tile-sharded vanilla step", whole, (rp, ra.mu, float(raux["loss"])),
+                   lrs, PARAM_FIELDS, tag)
+    res["ms_tile"] = timed_steps(tstep, state, (cams[0], targets[0], PAR_STEP_IT))
+    return res
+
+
+def parallel_coarse(check, dev, axis, data: dict, tag: str) -> dict:
+    """The ring KNN (k 16) over [9]'s pruned model against the single-device
+    KNN, then one (2, 2) coarse 'sdf' step from it held to the single-device
+    step of the same two views and draws."""
+    model = to_device(data["coarse_model"], dev)
+    extent = data["extent"]
+    res = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_ring, i_ring = knn_sharded(axis, model.params.xyz, model.params.xyz, 16,
+                                 ref_mask=model.alive)
+    torch.cuda.synchronize()
+    res["knn_s"] = time.perf_counter() - t0
+    if axis.index == 0:
+        d1, i1 = knn(model.params.xyz, model.params.xyz, 16, ref_mask=model.alive)
+        off = i_ring != i1
+        tie = off & (d_ring == d1)
+        print(f"{tag} ring KNN over {model.capacity} slots ({int(model.alive.sum())} alive), "
+              f"k 16: {res['knn_s']:.2f} s; indices differing from the single-device KNN "
+              f"{int(off.sum())}, of which at exactly equal distances {int(tie.sum())}",
+              flush=True)
+        check(not bool((off & ~tie).any()), "ring KNN indices equal the single-device KNN's "
+              "off exact distance ties")
+        res["knn_diff"] = int(off.sum())
+    mesh = make_mesh(2, 2, device=dev)
+    cfg = CoarseConfig()
+    lrs = opt.group_lrs(cfg.optim, spatial_lr_scale=extent)
+    dup = cfg.dup_capacity_mult * model.capacity
+    it = COARSE_MILESTONE + 1
+    cams = ring_cameras(VIEWS, dev)[:2]
+    gts = [torch.as_tensor(t, device=dev) for t in data["targets"][:2]]
+    knn_idx = i_ring
+    step = make_sharded_coarse_step(mesh, cfg, lrs, extent, dup, False, True)
+    reset_launches()
+    # The field query's gathers add their cotangents with atomics; the
+    # deterministic algorithms make a rerun (and the sharded step against
+    # the single-device one) comparable below float noise.
+    with no_fallback(refuse_fused=False), deterministic():
+        p, a, aux = step(shard_params(model.params, mesh.gauss),
+                         shard_params(model.alive, mesh.gauss),
+                         shard_params(opt.init_adam(model.params), mesh.gauss),
+                         shard_params(knn_idx, mesh.gauss), cams, gts, it,
+                         [iteration_generator(0, it + j, dev) for j in range(2)])
+        torch.cuda.synchronize()
+    res["counts"] = launches()
+    check(res["counts"] == (2, 2, 2), f"(2, 2) coarse 'sdf' step: two launches each of K1, K2, "
+          f"K3 on this rank, image and depth (got {res['counts']})")
+    whole = (gather_params(p, mesh.gauss), gather_params(a.mu, mesh.gauss), float(aux["loss"]))
+    if axis.index == 0:
+        def reference():
+            leaves = [getattr(model.params, f).detach().clone().requires_grad_(True)
+                      for f in PARAM_FIELDS]
+            loss, grads = 0.0, None
+            for j, (cam, gt) in enumerate(zip(cams, gts)):  # one view's graph at a time
+                lv = coarse_mod.coarse_loss(
+                    cfg, GaussianParams(**dict(zip(PARAM_FIELDS, leaves))), model.alive, knn_idx,
+                    cam, gt, iteration_generator(0, it + j, dev), extent, dup, False, True)[0] / 2
+                g = torch.autograd.grad(lv, leaves, allow_unused=True)
+                g = [torch.zeros_like(x) if gi is None else gi for x, gi in zip(leaves, g)]
+                grads = g if grads is None else [u + v for u, v in zip(grads, g)]
+                loss += float(lv)
+            rp, ra = opt.adam_step(model.params, GaussianParams(**dict(zip(PARAM_FIELDS, grads))),
+                                   opt.init_adam(model.params), it, lrs, cfg.optim)
+            return rp, ra.mu, loss
+
+        with deterministic():
+            ref, again = reference(), reference()
+        spread = {f: float((getattr(ref[1], f) - getattr(again[1], f)).abs().max())
+                  for f in PARAM_FIELDS if getattr(ref[1], f).numel()}
+        print(f"{tag} coarse reference run twice, max|d mu| per field {json.dumps(spread)}",
+              flush=True)
+        step_close(check, "(2, 2) coarse 'sdf' step", whole, ref,
+                   {f: (lambda s, f=f: lrs[f](it)) for f in PARAM_FIELDS},
+                   [f for f in PARAM_FIELDS if getattr(ref[0], f).numel()], tag)
+    return res
+
+
+def parallel_refine(check, dev, axis, data: dict, tag: str) -> dict:
+    """One (2, 2) refine step on [11]'s mesh (RefineConfig's defaults, SH
+    3) held to the single-device step of the same two views."""
+    verts, faces, vc = data["mesh"]
+    cfg = RefineConfig()
+    params, bm = init_bound_params(verts, faces, vc, n_gaussians_per_triangle=1,
+                                   extent=data["extent"], sh_degree=cfg.sh_degree, device=dev)
+    pairs = torch.as_tensor(normal_consistency_pairs(faces).astype(np.int64), device=dev)
+    bbox_radius = 0.5 * float(np.linalg.norm(verts.max(0) - verts.min(0)))
+    lrs = bound_lrs(cfg, 10.0 * bbox_radius / np.sqrt(len(verts)))
+    dup = cfg.dup_capacity_mult * params.opacity_logit.shape[0]
+    cams = ring_cameras(VIEWS, dev)[:2]
+    gts = [torch.as_tensor(t, device=dev) for t in data["targets"][:2]]
+    mesh = make_mesh(2, 2, device=dev)
+    p, a, sharded = shard_bound_state(mesh.gauss, params, init_bound_adam(params))
+    step = make_sharded_refine_step(mesh, cfg, bm, pairs, lrs, cfg.sh_degree, dup, sharded)
+    reset_launches()
+    with no_fallback(refuse_fused=False):
+        p, a, aux = step(p, a, cams, gts, PAR_STEP_IT)
+        torch.cuda.synchronize()
+    counts = launches()
+    check(counts == (1, 1, 1), f"(2, 2) refine step: one launch each of K1, K2, K3 on this rank "
+          f"(got {counts})")
+    whole = (gather_bound(p, mesh.gauss, sharded), gather_bound(a.mu, mesh.gauss, sharded),
+             float(aux["loss"]))
+    if axis.index == 0:
+        leaves = [getattr(params, f).detach().clone().requires_grad_(True) for f in BOUND_FIELDS]
+        loss, grads = 0.0, None
+        for cam, gt in zip(cams, gts):  # one view's graph at a time
+            lv = refine_loss(cfg, refine_bound.BoundParams(**dict(zip(BOUND_FIELDS, leaves))),
+                             bm, pairs, cam, gt, cfg.sh_degree, dup)[0] / 2
+            g = torch.autograd.grad(lv, leaves)
+            grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
+            loss += float(lv)
+        rp, ra = bound_adam_step(params, refine_bound.BoundParams(**dict(zip(BOUND_FIELDS,
+                                                                              grads))),
+                                 init_bound_adam(params), PAR_STEP_IT, lrs, cfg)
+        print(f"{tag} refine: {len(verts)} vertices, {params.opacity_logit.shape[0]} Gaussians; "
+              f"sharded fields {[f for f, v in sharded.items() if v]}", flush=True)
+        step_close(check, "(2, 2) refine step", whole, (rp, ra.mu, loss), lrs,
+                   BOUND_FIELDS, tag)
+    return dict(counts=counts)
+
+
+def parallel_rank(dev, data: dict) -> dict:
+    """[15]'s world-4 phases on this rank (run_ranks entry): (a) the 1M
+    model's ring views tile-sharded, (b) its fwd+bwd at view 0, (d) the
+    sharded vanilla steps, (e) the ring KNN and the coarse step, (f) the
+    refine step. Rank 0 gathers every rank's failed checks, launch counts
+    and kernel errors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check, tag = rank_checks()
+    axis = world_axis()
+    arrays = scene_params(N_GAUSS, SCENE_SEED, SH_DEGREE)
+    model = model_from_numpy(arrays, np.ones(N_GAUSS, bool), SH_DEGREE, device=dev)
+    cams = ring_cameras(VIEWS, dev)
+    t0 = time.perf_counter()
+    res = dict(serve=sharded_views(check, dev, axis, model, cams, data["view_kw"], tag,
+                                   "tile-sharded serving"))
+    res["serve_s"] = time.perf_counter() - t0
+    res["fb"] = sharded_fwd_bwd(check, dev, axis, model, cams[0], data["view_kw"][0], tag)
+    del model
+    torch.cuda.empty_cache()  # four ranks share the card: hand back each phase's peak
+    t0 = time.perf_counter()
+    res["train"] = parallel_training(check, dev, axis, data, tag)
+    res["train_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["coarse"] = parallel_coarse(check, dev, axis, data, tag)
+    res["coarse_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["refine"] = parallel_refine(check, dev, axis, data, tag)
+    res["refine_s"] = time.perf_counter() - t0
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    mine = dict(failures=check.failures, peak_gb=res["peak_gb"],
+                counts=[res["serve"]["counts"], res["fb"]["counts"], res["train"]["counts_2x2"],
+                        res["train"]["counts_tile"], res["coarse"]["counts"],
+                        res["refine"]["counts"]],
+                errs=[res["fb"]["errs"], res["train"]["errs"]])
+    every = [None] * axis.size
+    dist.all_gather_object(every, mine, group=axis.group)
+    res["ranks"] = every
+    return res
+
+
+def nccl_rank(dev, data: dict) -> dict:
+    """[15c]: view 0 of the 1M model tile-sharded over an NCCL group (one
+    rank per card), held to the fused render."""
+    check, tag = rank_checks()
+    axis = world_axis()
+    model = model_from_numpy(scene_params(N_GAUSS, SCENE_SEED, SH_DEGREE),
+                             np.ones(N_GAUSS, bool), SH_DEGREE, device=dev)
+    # View 0 twice: the first render of a fresh process loads its kernels.
+    res = sharded_views(check, dev, axis, model, ring_cameras(VIEWS, dev)[:1] * 2,
+                        data["view_kw"][:1] * 2, tag, f"NCCL world {axis.size}")
+    every = [None] * axis.size
+    dist.all_gather_object(every, (check.failures, res["counts"]), group=axis.group)
+    return dict(res, backend=axis.backend, failures=[f for fs, _ in every for f in fs],
+                counts_by_rank=[c for _, c in every])
+
+
+def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
+    """[15]: the multi-device paths on the card. (a), (b), (d), (e), (f) run
+    in one world-4 gloo run of ranks sharing the card (parallel_rank); (c)
+    on NCCL; (g) the sharded level set and (h) the pipeline with devices=4
+    through their single-controller entry points, every rank refusing the
+    plain K1-K3 and reporting its launches. 4 ranks sharing one card
+    measure correctness and host staging, not multi-card scaling."""
+    t15 = time.perf_counter()
+    view_kw = [caps_kw(c) for c in view_caps]
+    host_coarse = to_device(coarse["model"], "cpu")
+    data = dict(view_kw=view_kw, targets=[t.cpu() for t in targets[:2]], extent=coarse["extent"],
+                coarse_model=host_coarse,
+                mesh=(mesh["verts"], mesh["faces"], mesh["colors"].astype(np.float32) / 255.0))
+    t0 = time.perf_counter()
+    r = run_ranks(parallel_rank, PAR_WORLD, device="cuda", args=(data,))
+    ranks_s = time.perf_counter() - t0
+    for i, rk in enumerate(r["ranks"]):
+        for f in rk["failures"]:
+            check(False, f"rank {i}: {f}")
+    per_rank = [tuple(sum(c) for c in zip(*rk["counts"])) for rk in r["ranks"]]
+    k_counts = tuple(sum(c) for c in zip(*per_rank))
+    errs = {}
+    for rk in r["ranks"]:
+        for e in rk["errs"]:
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+    serve, train = r["serve"], r["train"]
+    by_op = {k: v for k, v in serve["bytes"].items() if v}
+    print(f"[15] (a) tile-sharded serving on {card}, {PAR_LAYOUT}: ms per view on rank 0, "
+          f"median of {VIEWS} (CUDA events, render + image gather) "
+          f"{statistics.median(serve['ms']):.3f} ({', '.join(f'{v:.1f}' for v in serve['ms'])}); "
+          f"collective bytes over the {VIEWS} views on rank 0 by op {json.dumps(by_op)}; peak "
+          f"memory per rank {[round(rk['peak_gb'], 3) for rk in r['ranks']]} GB")
+    check(all(c[0][0] > 0 and c[1] == (1, 1, 1) and c[3] == (1, 1, 1)
+              for c in (rk["counts"] for rk in r["ranks"])),
+          "no fallback: every rank launched K1 on (a), and K1, K2, K3 on (b) and (d)")
+    print(f"[15] (d) training on {card}, {PAR_LAYOUT}: (2, 2) step median "
+          f"{statistics.median(train['ms_2x2']):.3f} ms, tile-sharded step median "
+          f"{statistics.median(train['ms_tile']):.3f} ms, of {PAR_TIMED_STEPS} (CUDA events on "
+          f"rank 0)")
+    print(f"[15] (e) ring KNN {r['coarse']['knn_s']:.2f} s on {card}, {PAR_LAYOUT}; wall of the "
+          f"ranks' run {ranks_s:.1f} s (serving {r['serve_s']:.1f}, training {r['train_s']:.1f}, "
+          f"coarse {r['coarse_s']:.1f}, refine {r['refine_s']:.1f})")
+
+    # (c) NCCL: world 1, and one rank per card where there are several.
+    nc_counts = (0, 0, 0)
+    for world in sorted({1, torch.cuda.device_count()}):
+        nc = run_ranks(nccl_rank, world, device="cuda", args=(data,))
+        for f in nc["failures"]:
+            check(False, f"NCCL world {world}: {f}")
+        check(nc["backend"] == "nccl", f"(c) world {world} ran on NCCL ({nc['backend']})")
+        nc_counts = tuple(a + sum(b) for a, b in zip(nc_counts, zip(*nc["counts_by_rank"])))
+        print(f"[15] (c) NCCL world {world} on {card}: view 0 {nc['ms'][1]:.3f} ms (CUDA "
+              f"events, rank 0, its second render; the first {nc['ms'][0]:.1f} ms), bytes by op over "
+              f"both {json.dumps({k: v for k, v in nc['bytes'].items() if v})}")
+    if torch.cuda.device_count() == 1:
+        print("[15] (c) one card: NCCL runs with world 1 only (NCCL refuses two ranks on one "
+              "device)")
+
+    # (g) the level set over 4 ranks against the single device.
+    cams = ring_cameras(VIEWS, dev)[:LEVELSET_CAMS]
+    t0 = time.perf_counter()
+    with plain_refused_in_ranks():
+        sh = collect_surface_points_sharded(PAR_WORLD, coarse["model"], cams,
+                                            rng=np.random.default_rng(0), device="cuda")
+    sh_s = time.perf_counter() - t0
+    g_counts = [tuple(c) for c in sh["launches"]]
+    check(len(g_counts) == PAR_WORLD and all(c[0] > 0 for c in g_counts),
+          f"(g) every rank launched K1, the plain K1-K3 refused (per rank {g_counts})")
+    t0 = time.perf_counter()
+    one = levelset.collect_surface_points(coarse["model"], cams, rng=np.random.default_rng(0))
+    one_s = time.perf_counter() - t0
+    same_n = len(sh["points"]) == len(one["points"])
+    pe = float(np.abs(sh["points"] - one["points"]).max()) if same_n else float("inf")
+    ne = float(np.abs(sh["normals"] - one["normals"]).max()) if same_n else float("inf")
+    print(f"[15] (g) level set, {LEVELSET_CAMS} cameras of [10] over {PAR_WORLD} ranks on "
+          f"{card}: {sh_s:.1f} s wall ({one_s:.1f} s on one rank); {len(sh['points'])} points; "
+          f"max|points diff| {pe:.3e}, max|normals diff| {ne:.3e}; launches (K1, K2, K3) per "
+          f"rank {g_counts}")
+    check(same_n and pe <= 1e-5 and ne <= 1e-4
+          and np.array_equal(sh["gaussian_idx"], one["gaussian_idx"]),
+          "(g) the sharded level-set cloud equals the single-device cloud (points 1e-5, "
+          "normals 1e-4, Gaussian ids equal)")
+
+    # (h) the pipeline with devices=4 on [13]'s scene.
+    t0 = time.perf_counter()
+    scene, _ = make_parity_scene(n_gt=2_000, n_init=800, n_cams=16, resolution=96, k_max=512,
+                                 device=dev)
+    out_dir = os.path.join(WORK, "pipeline15")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = PipelineConfig(
+        scene_path="<procedural>", output_dir=out_dir, poly="low_poly", refinement_time="short",
+        eval_split=False, capacity=2**12, devices=PAR_WORLD, vanilla_iterations=64,
+        vanilla_overrides=dict(sh_degree=0, sh_warmup_every=1, densify_from=10_000,
+                               densify_until=10_000, opacity_reset_every=10_000,
+                               dup_capacity_mult=32, k_max=256, log_every=32),
+        coarse_overrides=dict(start_iteration=0, num_iterations=40, entropy_start=5,
+                              entropy_end=20, start_sdf_estimation_from=20, regularize_from=10,
+                              prune_at=(), sh_degree=0, reset_neighbors_every=12,
+                              n_samples_for_sdf_regularization=20_000, k_max=256,
+                              dup_capacity_mult=32, log_every=12),
+        extract_overrides=dict(total_points=60_000, poisson_resolution=64,
+                               decimation_target=2_000, dup_capacity=2**14, k_max=256,
+                               prune_opacity_threshold=0.1),
+        refine_overrides=dict(num_iterations=24, sh_degree=0, sh_warmup_every=1, k_max=256,
+                              dup_capacity_mult=16, log_every=12),
+    )
+    logs, walls, h_counts = [], {}, {}
+    art = {}
+    for name, fn, arg in (("vanilla", run_vanilla, None), ("coarse", run_coarse, "vanilla"),
+                          ("extract_mesh", run_extract_mesh, "coarse"),
+                          ("refine", run_refine, "extract_mesh")):
+        s0 = time.perf_counter()
+        n_logs = len(logs)
+        with plain_refused_in_ranks():
+            art[name] = fn(cfg, scene, *(() if arg is None else (art[arg],)), log_fn=logs.append)
+        walls[name] = time.perf_counter() - s0
+        recs = [json.loads(x) for x in logs[n_logs:]]
+        inner = [r["elapsed_s"] for r in recs if "elapsed_s" in r]
+        if name != "extract_mesh":  # its ranks are (g)'s level set, counted there
+            stage = [tuple(c) for r in recs if r.get("event") == "kernel_launches"
+                     for c in r["per_rank"]]
+            h_counts[name] = stage
+            check(len(stage) == PAR_WORLD and all(min(c) > 0 for c in stage),
+                  f"(h) {name}: every rank launched K1, K2 and K3, the plain versions refused "
+                  f"(per rank {stage})")
+        if inner:
+            print(f"[15] (h) {name}: {walls[name]:.2f} s wall, of which the ranks' loop "
+                  f"{inner[-1]:.2f} s by rank 0's last log")
+    v, f, vc = load_mesh_ply(art["extract_mesh"])
+    from sugar_tpu_torch.io.ply import load_gaussian_ply
+    n_refined = load_gaussian_ply(art["refine"])["xyz"].shape[0]
+    print(f"[15] (h) pipeline with devices={PAR_WORLD} (2 x 2) on [13]'s scene, {PAR_LAYOUT}: "
+          f"stages {json.dumps({k: round(x, 2) for k, x in walls.items()})} s; mesh {len(v)} "
+          f"vertices, {len(f)} faces; refined {n_refined} Gaussians; launches (K1, K2, K3) per "
+          f"rank {json.dumps(h_counts)}")
+    check(all(os.path.exists(a) for a in art.values()) and len(v) > 100 and len(f) > 100
+          and vc is not None and n_refined == 6 * len(f)
+          and any("mesh" in str(x) for x in logs),
+          "(h) the sharded pipeline writes every artifact; the mesh has > 100 vertices and faces "
+          "with vertex colors; 6 refined Gaussians per face; the sharded loops logged their mesh")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    wall = time.perf_counter() - t15
+    gh_counts = tuple(sum(c) for c in zip(*g_counts, *(c for cs in h_counts.values()
+                                                         for c in cs)))
+    print(f"[15] summary on {card}: {wall:.1f} s; launches (K1, K2, K3) over the world-4 ranks "
+          f"{k_counts} (per rank {per_rank}), NCCL {nc_counts}, level set and pipeline "
+          f"{gh_counts}; kernels vs plain in the ranks {json.dumps(errs)}")
+    return dict(launches=tuple(a + b + c for a, b, c in zip(k_counts, nc_counts, gh_counts)),
+                errs=errs, wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -3524,18 +4162,27 @@ def main() -> int:
           + f"; demo {cp['wall_s']:.2f} s, {cp['overflowed']} of {len(cp['calls'])} frames past "
           f"k_max; entry points " + ", ".join(f"{k} {v:.2f} s" for k, v in ep["walls"].items()))
 
+    # [15] the multi-device paths: ranks sharing the card (gloo), NCCL, the
+    # sharded level set and the pipeline with devices=4.
+    pr = phase_parallel(check, dev, card, view_caps, tr["targets"], co, ex)
+    shutil.rmtree(WORK, ignore_errors=True)
+
     k1n, k2n, k3n = (sum(c) for c in zip(tr["launches"], ex["launches"], rf["launches"],
-                                         tx["launches"], pl["launches"], launches14))
+                                         tx["launches"], pl["launches"], launches14,
+                                         pr["launches"]))
     # max_abs_err: the largest over the comparisons at the paths' shapes
     # ([3] view 0 of the 1M scene, [10] the depth render, [11] a refine
     # step, [12] the bake's render, [13] each pipeline stage's last
     # launches, [14] the two-pass fwd+bwd at view 0 of the 1M scene, the
     # oracle scene's last two-pass render, the last launches of
-    # scripts.render and train_vanilla_gs).
+    # scripts.render and train_vanilla_gs, [15] each rank's band of the
+    # tile-sharded fwd+bwd and train step).
     k1_err = max(k1_err, ex["k1_err"], rf["errs"]["K1"], tx["k1_err"], pl["errs"]["K1"],
-                 errs14["K1"])
-    k2_err = max(k2_err, rf["errs"]["K2"], pl["errs"]["K2"], errs14["K2"])
-    k3_err = max(k3_err, rf["errs"]["K3"], pl["errs"]["K3"], errs14["K3"])
+                 errs14["K1"], pr["errs"].get("K1", 0.0))
+    k2_err = max(k2_err, rf["errs"]["K2"], pl["errs"]["K2"], errs14["K2"],
+                 pr["errs"].get("K2", 0.0))
+    k3_err = max(k3_err, rf["errs"]["K3"], pl["errs"]["K3"], errs14["K3"],
+                 pr["errs"].get("K3", 0.0))
     kernels = [
         dict(name="tile_composite_fwd", route="cuda",
              source="sugar_tpu_torch/csrc/tile_composite.cu",

@@ -13,9 +13,10 @@ segment-sum), scene loading, coarse SuGaR, coarse mesh extraction
 (``meshing/``, with the host C++ QEM decimation of ``csrc/qem.cpp``),
 mesh-bound refinement and the texture bake (``refine/``, ``io/obj.py``,
 ``io/png.py``), evaluation (``eval/``), the whole pipeline
-(``pipeline.py``) with its entry points (``scripts/``), and the viewer
-and profiling auxiliaries. The oracle render modes and the multi-device
-paths are next; see ROADMAP.md.
+(``pipeline.py``) with its entry points (``scripts/``), the viewer and
+profiling auxiliaries, every render mode of the JAX package, and the
+multi-device paths (``parallel/``, one process per rank under
+``torch.distributed``).
 
 Importing the package builds nothing and needs neither a GPU nor ``nvcc``.
 """

@@ -43,6 +43,57 @@ def _lexsort_top(d: torch.Tensor, i: torch.Tensor, k: int) -> tuple[torch.Tensor
     return d.gather(1, o), i.gather(1, o)
 
 
+def _candidates(qc, qq, refs_safe, rr_all, k: int, r_chunk: int):
+    """(Qc, >= k) candidate (distance, index) pairs of the query chunk
+    ``qc`` against every reference, holding the k smallest pairs of each
+    row in lexicographic order: each reference chunk's k + 1 smallest,
+    with the chunk redone by a stable sort on the rows where the k-th and
+    (k+1)-th tie; padded with (+inf, 0) up to k columns."""
+    dev = qc.device
+    r_n = refs_safe.shape[0]
+    pool_d, pool_i, ties = [], [], []
+    for r0 in range(0, r_n, r_chunk):
+        d = _sq_dists(qc, qq, refs_safe[r0:r0 + r_chunk], rr_all[r0:r0 + r_chunk])
+        if d.shape[1] <= k + 1:  # a narrow last chunk: keep every column
+            v, p = d, torch.arange(d.shape[1], device=dev).expand_as(d)
+            ties.append(torch.zeros(d.shape[0], dtype=torch.bool, device=dev))
+        else:
+            # The block's k + 1 smallest. When the k-th and (k+1)-th are
+            # equal (and finite), the k smallest are ambiguous: that
+            # row of the block is redone by a stable sort below.
+            v, p = torch.topk(d, k + 1, dim=1, largest=False, sorted=True)
+            ties.append((v[:, k - 1] == v[:, k]) & torch.isfinite(v[:, k]))
+        pool_d.append(v)
+        pool_i.append(p + r0)
+    ties = torch.stack(ties)
+    for b in ties.any(1).nonzero()[:, 0].tolist():  # one device read per query chunk
+        rows = ties[b].nonzero()[:, 0]
+        r0 = b * r_chunk
+        d = _sq_dists(qc[rows], qq[rows], refs_safe[r0:r0 + r_chunk], rr_all[r0:r0 + r_chunk])
+        v, p = torch.sort(d, dim=1, stable=True)
+        pool_d[b][rows] = v[:, :k + 1]
+        pool_i[b][rows] = p[:, :k + 1] + r0
+    d_all, i_all = torch.cat(pool_d, 1), torch.cat(pool_i, 1)
+    if d_all.shape[1] < k:
+        pad = k - d_all.shape[1]
+        d_all = torch.cat([d_all, d_all.new_full((d_all.shape[0], pad), float("inf"))], 1)
+        i_all = torch.cat([i_all, i_all.new_zeros(i_all.shape[0], pad)], 1)
+    return d_all, i_all
+
+
+def masked_refs(refs: torch.Tensor, ref_mask: torch.Tensor):
+    """(refs with masked rows zeroed, ||r||^2 with +inf on masked rows)."""
+    inf = torch.tensor(float("inf"), device=refs.device)
+    return torch.where(ref_mask[:, None], refs, 0.0), torch.where(ref_mask, (refs * refs).sum(-1),
+                                                                   inf)
+
+
+def finish(d: torch.Tensor, i: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's carry starts at (+inf, 0) and wins every tie at +inf; distances
+    are clamped at 0."""
+    return torch.clamp_min(d, 0.0), torch.where(torch.isinf(d), 0, i)
+
+
 @torch.no_grad()
 def knn(
     queries: torch.Tensor,  # (Q, 3)
@@ -59,48 +110,15 @@ def knn(
     q_n, r_n = queries.shape[0], refs.shape[0]
     if ref_mask is None:
         ref_mask = torch.ones(r_n, dtype=torch.bool, device=dev)
-    inf = torch.tensor(float("inf"), device=dev)
-    rr_all = torch.where(ref_mask, (refs * refs).sum(-1), inf)
-    refs_safe = torch.where(ref_mask[:, None], refs, 0.0)
+    refs_safe, rr_all = masked_refs(refs, ref_mask)
     out_d, out_i = [], []
     for q0 in range(0, q_n, q_chunk):
         qc = queries[q0:q0 + q_chunk]
         qq = (qc * qc).sum(-1, keepdim=True)
-        pool_d, pool_i, ties = [], [], []
-        for r0 in range(0, r_n, r_chunk):
-            d = _sq_dists(qc, qq, refs_safe[r0:r0 + r_chunk], rr_all[r0:r0 + r_chunk])
-            if d.shape[1] <= k + 1:  # a narrow last chunk: keep every column
-                v, p = d, torch.arange(d.shape[1], device=dev).expand_as(d)
-                ties.append(torch.zeros(d.shape[0], dtype=torch.bool, device=dev))
-            else:
-                # The block's k + 1 smallest. When the k-th and (k+1)-th are
-                # equal (and finite), the k smallest are ambiguous: that
-                # row of the block is redone by a stable sort below.
-                v, p = torch.topk(d, k + 1, dim=1, largest=False, sorted=True)
-                ties.append((v[:, k - 1] == v[:, k]) & torch.isfinite(v[:, k]))
-            pool_d.append(v)
-            pool_i.append(p + r0)
-        ties = torch.stack(ties)
-        for b in ties.any(1).nonzero()[:, 0].tolist():  # one device read per query chunk
-            rows = ties[b].nonzero()[:, 0]
-            r0 = b * r_chunk
-            d = _sq_dists(qc[rows], qq[rows], refs_safe[r0:r0 + r_chunk], rr_all[r0:r0 + r_chunk])
-            v, p = torch.sort(d, dim=1, stable=True)
-            pool_d[b][rows] = v[:, :k + 1]
-            pool_i[b][rows] = p[:, :k + 1] + r0
-        d_all, i_all = torch.cat(pool_d, 1), torch.cat(pool_i, 1)
-        if d_all.shape[1] < k:
-            pad = k - d_all.shape[1]
-            d_all = torch.cat([d_all, inf.expand(d_all.shape[0], pad)], 1)
-            i_all = torch.cat([i_all, i_all.new_zeros(i_all.shape[0], pad)], 1)
-        d_k, i_k = _lexsort_top(d_all, i_all, k)
+        d_k, i_k = _lexsort_top(*_candidates(qc, qq, refs_safe, rr_all, k, r_chunk), k)
         out_d.append(d_k)
         out_i.append(i_k)
     if not out_d:
         return (torch.zeros((0, k), device=dev),
                 torch.zeros((0, k), dtype=torch.int64, device=dev))
-    d = torch.cat(out_d)
-    i = torch.cat(out_i)
-    # JAX's carry starts at (+inf, 0) and wins every tie at +inf.
-    i = torch.where(torch.isinf(d), 0, i)
-    return torch.clamp_min(d, 0.0), i
+    return finish(torch.cat(out_d), torch.cat(out_i))

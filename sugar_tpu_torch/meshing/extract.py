@@ -26,6 +26,7 @@ from sugar_tpu_torch.io import ply as ply_io
 from sugar_tpu_torch.meshing import levelset, meshops, poisson
 from sugar_tpu_torch.models.densifier import prune_low_opacity
 from sugar_tpu_torch.models.gaussians import GaussianModel
+from sugar_tpu_torch.parallel.meshing import collect_surface_points_sharded
 
 
 @dataclasses.dataclass
@@ -60,18 +61,16 @@ def extract_mesh_from_coarse_model(
     cfg: ExtractConfig = ExtractConfig(),
     output_path: str | None = None,
     rng: np.random.Generator | None = None,
-    device_mesh=None,
+    device_mesh: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Run the full extraction on the model's device (the level set) and
     the host (the rest); returns (vertices, faces) and optionally writes
     the PLY, with vertex colors.
 
-    ``device_mesh`` (the multi-device level-set collection) is not ported
-    yet and raises NotImplementedError."""
-    if device_mesh is not None:
-        raise NotImplementedError(
-            "the multi-device level-set collection is not ported to sugar_tpu_torch yet; "
-            "see ROADMAP.md (queue 1, multi-device)")
+    With ``device_mesh`` (a number of ranks; the JAX package takes a
+    ``jax.sharding.Mesh``), the per-camera level-set collection runs over
+    that many ranks on the model's device type (``parallel.meshing``); the
+    collected cloud is the single-device one."""
     rng = rng or np.random.default_rng(0)
     model = prune_low_opacity(model, cfg.prune_opacity_threshold)
 
@@ -79,8 +78,7 @@ def extract_mesh_from_coarse_model(
     # them; DC-only evaluation is equivalent for deg 0).
     colors = sh_lib.sh0_to_rgb(model.params.sh_dc).cpu().numpy()
 
-    cloud = levelset.collect_surface_points(
-        model, cameras,
+    collect_kwargs = dict(
         surface_level=cfg.surface_level,
         total_points=cfg.total_points,
         rng=rng,
@@ -88,6 +86,11 @@ def extract_mesh_from_coarse_model(
         k_max=cfg.k_max,
         colors_per_gaussian=colors,
     )
+    if device_mesh is not None:
+        cloud = collect_surface_points_sharded(device_mesh, model, cameras,
+                                               device=model.device.type, **collect_kwargs)
+    else:
+        cloud = levelset.collect_surface_points(model, cameras, **collect_kwargs)
     pts, normals = cloud["points"], cloud["normals"]
     centers = np.stack([c.cam_center.cpu().numpy() for c in cameras])
 

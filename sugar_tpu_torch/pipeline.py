@@ -15,8 +15,12 @@ The artifact paths, ``stage_skip`` events and resume are the JAX
 package's, and the artifacts cross between the packages (the refine
 stage's ``_state.pkl`` holds the JAX package's keys as plain numpy). Every
 stage runs on the device of the scene's cameras (``load_scene`` puts them
-on ``cuda`` unless the caller asks for the CPU). ``devices > 1`` (the
-sharded stages) is not ported yet and raises.
+on ``cuda`` unless the caller asks for the CPU). With ``devices > 1`` the
+vanilla, coarse, level-set and refine stages run sharded over a (data,
+gauss) mesh of that many ranks (``parallel/``), as in the JAX package; the
+pipeline stays single-controller, each sharded stage starting its ranks
+through ``parallel.launch.run_ranks`` (one process per rank, on the
+scene's device type) and logging rank 0's records when they end.
 
 A vanilla 3DGS checkpoint (7k iterations) is a prerequisite, as in the
 reference (README.md:94-95); :func:`run_vanilla` produces one.
@@ -36,6 +40,10 @@ from sugar_tpu_torch.io import datasets as ds
 from sugar_tpu_torch.io import ply as ply_io
 from sugar_tpu_torch.meshing.extract import ExtractConfig, extract_mesh_from_coarse_model
 from sugar_tpu_torch.models import gaussians as gm
+from sugar_tpu_torch.parallel.coarse import coarse_rank
+from sugar_tpu_torch.parallel.launch import run_ranks, to_device
+from sugar_tpu_torch.parallel.refine import refine_rank
+from sugar_tpu_torch.parallel.trainer import vanilla_rank
 from sugar_tpu_torch.refine.extract_textured import TextureConfig, extract_textured_mesh
 from sugar_tpu_torch.refine.trainer import (
     RefineConfig,
@@ -64,8 +72,8 @@ class PipelineConfig:
     # exists, and each stage saves/resumes mid-stage milestones under
     # <output_dir>/checkpoints/<stage>.
     resume: bool = True
-    # Multi-device execution (the JAX package's sharded stages); not
-    # ported yet: devices > 1, or any mesh_gauss, raises.
+    # Multi-device execution: devices > 1 runs the sharded stages over a
+    # (data, gauss) mesh of that many ranks (parallel/).
     devices: int = 1
     mesh_gauss: int | None = None  # None = 2 if devices even else 1
     # Optional stage-config overrides (tests / experimentation).
@@ -87,12 +95,27 @@ class PipelineConfig:
         return {"short": 2_000, "medium": 7_000, "long": 15_000}[self.refinement_time]
 
 
-def _single_device(cfg: PipelineConfig) -> None:
-    if cfg.devices > 1 or cfg.mesh_gauss is not None:
-        raise NotImplementedError(
-            f"devices={cfg.devices}, mesh_gauss={cfg.mesh_gauss}: the sharded pipeline stages "
-            "are not ported to sugar_tpu_torch yet; see ROADMAP.md (queue 1, the parallel/ "
-            "slice)")
+def pipeline_mesh(cfg: PipelineConfig) -> tuple[int, int] | None:
+    """The pipeline's (n_data, n_gauss) mesh, or None for single-device
+    execution."""
+    if cfg.devices <= 1:
+        return None
+    n_gauss = cfg.mesh_gauss
+    if n_gauss is None:
+        n_gauss = 2 if cfg.devices % 2 == 0 else 1
+    if cfg.devices % n_gauss:
+        raise ValueError(f"mesh_gauss={n_gauss} does not divide devices={cfg.devices}")
+    return cfg.devices // n_gauss, n_gauss
+
+
+def _sharded(mesh: tuple[int, int], scene: ds.SceneData, fn, args: tuple, log_fn):
+    """Run a sharded stage's rank function over the (n_data, n_gauss)
+    mesh on the scene's device type; log rank 0's records; return its
+    result on the scene's device."""
+    out, logs = run_ranks(fn, mesh[0] * mesh[1], device=_device(scene).type, args=args + mesh)
+    for d in logs:
+        log_fn(json.dumps(d))
+    return to_device(out, _device(scene))
 
 
 def _device(scene: ds.SceneData) -> torch.device:
@@ -121,7 +144,7 @@ def run_vanilla(
     cfg: PipelineConfig, scene: ds.SceneData, log_fn=print, network_gui=None
 ) -> str:
     """Stage 0: prerequisite vanilla 3DGS (gaussian_splatting/train.py)."""
-    _single_device(cfg)
+    mesh = pipeline_mesh(cfg)
     out_dir = os.path.join(
         cfg.output_dir, "vanilla_gs", f"iteration_{cfg.vanilla_iterations}"
     )
@@ -137,20 +160,25 @@ def run_vanilla(
     )
     tkw.update(cfg.vanilla_overrides)
     tcfg = TrainConfig(**tkw)
-    model = train_vanilla_3dgs(
-        [scene.cameras[i] for i in train_idx],
-        [scene.images[i] for i in train_idx],
-        scene.points,
-        scene.colors,
-        extent=scene.extent,
-        cfg=tcfg,
-        log_fn=lambda d: log_fn(json.dumps(d)),
-        checkpoint_dir=_stage_ckpt_dir(cfg, "vanilla"),
-        resume=cfg.resume,
-        network_gui=network_gui,
-        source_path=cfg.scene_path,
-        device=_device(scene),
-    ).model
+    if mesh is not None:
+        model = _sharded(mesh, scene, vanilla_rank, (
+            [scene.cameras[i] for i in train_idx], [scene.images[i] for i in train_idx],
+            scene.points, scene.colors, scene.extent, tcfg), log_fn)
+    else:
+        model = train_vanilla_3dgs(
+            [scene.cameras[i] for i in train_idx],
+            [scene.images[i] for i in train_idx],
+            scene.points,
+            scene.colors,
+            extent=scene.extent,
+            cfg=tcfg,
+            log_fn=lambda d: log_fn(json.dumps(d)),
+            checkpoint_dir=_stage_ckpt_dir(cfg, "vanilla"),
+            resume=cfg.resume,
+            network_gui=network_gui,
+            source_path=cfg.scene_path,
+            device=_device(scene),
+        ).model
     os.makedirs(out_dir, exist_ok=True)
     gm.save_ply(model, ckpt)
     ds.save_cameras_json(
@@ -163,7 +191,7 @@ def run_vanilla(
 
 def run_coarse(cfg: PipelineConfig, scene: ds.SceneData, gs_ckpt: str, log_fn=print) -> str:
     """Stage 1: coarse surface alignment (train_coarse_{sdf,density})."""
-    _single_device(cfg)
+    mesh = pipeline_mesh(cfg)
     out = os.path.join(cfg.output_dir, "coarse", "coarse_15000.ply")
     if cfg.resume and os.path.exists(out):
         log_fn(json.dumps({"event": "stage_skip", "stage": "coarse", "artifact": out}))
@@ -174,16 +202,21 @@ def run_coarse(cfg: PipelineConfig, scene: ds.SceneData, gs_ckpt: str, log_fn=pr
     ckw = dict(mode=mode, white_background=cfg.white_background)
     ckw.update(cfg.coarse_overrides)
     ccfg = CoarseConfig(**ckw)
-    model = train_coarse(
-        model,
-        [scene.cameras[i] for i in train_idx],
-        [scene.images[i] for i in train_idx],
-        extent=scene.extent,
-        cfg=ccfg,
-        log_fn=lambda d: log_fn(json.dumps(d)),
-        checkpoint_dir=_stage_ckpt_dir(cfg, "coarse"),
-        resume=cfg.resume,
-    )
+    if mesh is not None:
+        model = _sharded(mesh, scene, coarse_rank, (
+            model, [scene.cameras[i] for i in train_idx], [scene.images[i] for i in train_idx],
+            scene.extent, ccfg), log_fn)
+    else:
+        model = train_coarse(
+            model,
+            [scene.cameras[i] for i in train_idx],
+            [scene.images[i] for i in train_idx],
+            extent=scene.extent,
+            cfg=ccfg,
+            log_fn=lambda d: log_fn(json.dumps(d)),
+            checkpoint_dir=_stage_ckpt_dir(cfg, "coarse"),
+            resume=cfg.resume,
+        )
     os.makedirs(os.path.dirname(out), exist_ok=True)
     gm.save_ply(model, out)
     return out
@@ -191,7 +224,7 @@ def run_coarse(cfg: PipelineConfig, scene: ds.SceneData, gs_ckpt: str, log_fn=pr
 
 def run_extract_mesh(cfg: PipelineConfig, scene: ds.SceneData, coarse_ckpt: str, log_fn=print) -> str:
     """Stage 2: level-set sampling + Poisson + decimation (extract_mesh)."""
-    _single_device(cfg)
+    mesh = pipeline_mesh(cfg)
     out = os.path.join(
         cfg.output_dir,
         "coarse_mesh",
@@ -211,6 +244,7 @@ def run_extract_mesh(cfg: PipelineConfig, scene: ds.SceneData, coarse_ckpt: str,
     os.makedirs(os.path.dirname(out), exist_ok=True)
     extract_mesh_from_coarse_model(
         model, [scene.cameras[i] for i in train_idx], ecfg, output_path=out,
+        device_mesh=cfg.devices if mesh is not None else None,
     )
     return out
 
@@ -223,7 +257,7 @@ def run_refine(cfg: PipelineConfig, scene: ds.SceneData, mesh_path: str, log_fn=
     """Stage 3: joint mesh + surface-Gaussian refinement (train_refined).
     Also writes ``<refined>_state.pkl`` (``save_refined_state``) for the
     texture stage."""
-    _single_device(cfg)
+    mesh = pipeline_mesh(cfg)
     out = os.path.join(
         cfg.output_dir,
         "refined",
@@ -242,19 +276,24 @@ def run_refine(cfg: PipelineConfig, scene: ds.SceneData, mesh_path: str, log_fn=
     )
     rkw.update(cfg.refine_overrides)
     rcfg = RefineConfig(**rkw)
-    params, bm = refined_training(
-        verts,
-        faces.astype(np.int64),
-        vc,
-        [scene.cameras[i] for i in train_idx],
-        [scene.images[i] for i in train_idx],
-        extent=scene.extent,
-        cfg=rcfg,
-        log_fn=lambda d: log_fn(json.dumps(d)),
-        checkpoint_dir=_stage_ckpt_dir(cfg, "refine"),
-        resume=cfg.resume,
-        device=_device(scene),
-    )
+    if mesh is not None:
+        params, bm = _sharded(mesh, scene, refine_rank, (
+            verts, faces.astype(np.int64), vc, [scene.cameras[i] for i in train_idx],
+            [scene.images[i] for i in train_idx], scene.extent, rcfg), log_fn)
+    else:
+        params, bm = refined_training(
+            verts,
+            faces.astype(np.int64),
+            vc,
+            [scene.cameras[i] for i in train_idx],
+            [scene.images[i] for i in train_idx],
+            extent=scene.extent,
+            cfg=rcfg,
+            log_fn=lambda d: log_fn(json.dumps(d)),
+            checkpoint_dir=_stage_ckpt_dir(cfg, "refine"),
+            resume=cfg.resume,
+            device=_device(scene),
+        )
     os.makedirs(os.path.dirname(out), exist_ok=True)
     export_refined_ply(params, bm, out)
     save_refined_state(params, bm, _state_path(out))
@@ -289,7 +328,6 @@ def save_refined_state(params, bm, path: str) -> None:
 def run_texture(cfg: PipelineConfig, scene: ds.SceneData, refined_ply: str, log_fn=print) -> str:
     """Stage 4: UV texture baking + textured OBJ export
     (extract_refined_mesh_with_texture)."""
-    _single_device(cfg)
     out = os.path.join(cfg.output_dir, "refined_mesh", "textured.obj")
     if cfg.resume and os.path.exists(out):
         log_fn(json.dumps({"event": "stage_skip", "stage": "texture", "artifact": out}))
@@ -324,7 +362,7 @@ def run_full_pipeline(
 ) -> dict:
     """All stages (reference train.py flow) on ``device``. Returns artifact
     paths."""
-    _single_device(cfg)
+    pipeline_mesh(cfg)  # refuse a bad mesh before any stage runs
     scene = load_scene(cfg, device=device)
     gs = run_vanilla(cfg, scene, log_fn)
     coarse = run_coarse(cfg, scene, gs, log_fn)

@@ -12,7 +12,7 @@ from sugar_tpu_torch.pipeline import PipelineConfig, run_full_pipeline
 
 
 def main(argv=None, device="cuda") -> dict:
-    p = argparse.ArgumentParser(description="Train SuGaR end to end on one CUDA card.")
+    p = argparse.ArgumentParser(description="Train SuGaR end to end on CUDA cards.")
     p.add_argument("-s", "--scene_path", required=True)
     p.add_argument("-o", "--output_dir", default="./output")
     p.add_argument("-r", "--regularization_type", default="sdf",
@@ -28,11 +28,12 @@ def main(argv=None, device="cuda") -> dict:
     p.add_argument("--white_background", action="store_true")
     p.add_argument("--resolution", type=int, default=1)
     p.add_argument("--devices", type=int, default=1,
-                   help="devices for the sharded stages; only 1 is ported "
-                        "(more raises NotImplementedError)")
+                   help="ranks of the sharded stages: N > 1 runs them over a "
+                        "('data','gauss') mesh of N processes (NCCL with a card "
+                        "each; ranks sharing a card use gloo); 1 = single device")
     p.add_argument("--mesh_gauss", type=int, default=None,
-                   help="'gauss' axis size of the device mesh (with --devices > 1; "
-                        "not ported, so any value raises NotImplementedError)")
+                   help="'gauss' axis size of the mesh (default: 2 if --devices "
+                        "is even else 1)")
     args = p.parse_args(argv)
 
     cfg = PipelineConfig(

@@ -53,7 +53,10 @@ def test_port_has_the_slice_modules():
               "scripts.run_viewer", "raster.composite", "raster.reference_impl",
               "raster.tiled", "raster.twopass", "models.compositor", "scripts.render",
               "scripts.train_vanilla_gs", "scripts.demo_hybrid", "scripts.compose_animation",
-              "scripts.run_parity", "scripts.full_eval", "scripts.convert"):
+              "scripts.run_parity", "scripts.full_eval", "scripts.convert",
+              "parallel.launch", "parallel.comm", "parallel.mesh", "parallel.render",
+              "parallel.train", "parallel.trainer", "parallel.knn", "parallel.coarse",
+              "parallel.refine", "parallel.meshing", "scripts.scaling_report"):
         assert f"sugar_tpu_torch.{m}" in mods, m
 
 

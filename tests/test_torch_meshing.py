@@ -407,10 +407,14 @@ def vertex_matching(tv, jv, atol=1e-5):
 
 
 def test_extract_refuses_a_device_mesh():
+    """The port's device_mesh is a number of ranks; a mesh object (the JAX
+    package's jax.sharding.Mesh) or a count below 1 is refused before any
+    rank starts."""
     f, alive = scene()
-    with pytest.raises(NotImplementedError):
-        extract.extract_mesh_from_coarse_model(model_from_numpy(f, alive, 0, device="cpu"),
-                                               cams("cpu"), device_mesh=object())
+    for bad, err in ((object(), TypeError), (0, ValueError)):
+        with pytest.raises(err):
+            extract.extract_mesh_from_coarse_model(model_from_numpy(f, alive, 0, device="cpu"),
+                                                   cams("cpu"), device_mesh=bad)
 
 
 def test_centers_ablation_matches_jax():

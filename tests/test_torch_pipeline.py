@@ -215,18 +215,21 @@ def test_resumed_run_skips_every_stage(run):
                                                ("vanilla", "coarse", "mesh", "refined", "textured")]
 
 
-@pytest.mark.parametrize("sharding", [{"devices": 2}, {"mesh_gauss": 1}])
+@pytest.mark.parametrize("sharding", [{"devices": 3, "mesh_gauss": 2},
+                                      {"devices": 2, "mesh_gauss": 4}])
 def test_more_than_one_device_raises(run, sharding):
-    """devices > 1 raises, and so does mesh_gauss, which only the sharded
-    stages would read."""
+    """A mesh whose gauss axis does not divide the devices raises, before
+    any stage runs or is skipped, in every stage that runs sharded (the
+    texture stage runs on one device in both packages). The sharded
+    stages themselves run in tests/test_torch_parallel_train.py's
+    multichip pipeline test."""
     _, cfg, scene, art, _ = run
     many = pipe.PipelineConfig(**{**cfg.__dict__, **sharding})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="does not divide"):
         pipe.run_full_pipeline(many, device="cpu")
     for fn, arg in ((pipe.run_vanilla, None), (pipe.run_coarse, art["vanilla"]),
-                    (pipe.run_extract_mesh, art["coarse"]), (pipe.run_refine, art["mesh"]),
-                    (pipe.run_texture, art["refined"])):
-        with pytest.raises(NotImplementedError):
+                    (pipe.run_extract_mesh, art["coarse"]), (pipe.run_refine, art["mesh"])):
+        with pytest.raises(ValueError, match="does not divide"):
             fn(many, scene, *(() if arg is None else (arg,)), log_fn=lambda *_: None)
 
 
