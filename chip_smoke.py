@@ -133,9 +133,20 @@ together), then:
    K1-K3 and reports its launches, each sharded stage's held non-zero.
    Ranks sharing one card measure correctness and host staging, not
    multi-card scaling;
+16. the measurement entry points (``sugar_tpu_torch/scripts``, the port
+   of the JAX package's ``bench.py`` and ``scripts/profile_*`` and
+   ``microbench_*``) at their full widths, with the plain K1-K3 made to
+   raise: ``bench.main()`` (its three JSON lines parsed, their metric
+   names, the card's line and overflow 0 checked, its launches counted
+   exactly, K1, K2 and K3 held to their plain versions on its last
+   fwd+bwd's arguments), ``profile_raster`` and ``profile_trained`` on
+   both scenes (K1-K3 launched, each stage-by-stage image against the
+   one-call render of the same path within 1e-6), and
+   ``microbench_{gather,prims,sort}`` (``sort`` also in its ``extra``
+   mode), each time beside its cost per key, lookup or added element;
    then prints the kernels line (launches summed over 7, 10, 11, 12, 13,
-   14 and 15), the card line, and last ``{"ok": true, "device": {...}}`` —
-   only when every check passed.
+   14, 15 and 16), the card line, and last ``{"ok": true, "device":
+   {...}}`` — only when every check passed.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. It exits non-zero, printing no result, without a CUDA card.
@@ -146,6 +157,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -242,7 +254,17 @@ from sugar_tpu_torch.refine.trainer import (
     refined_training,
     render_bound,
 )
-from sugar_tpu_torch.scripts import compose_animation, demo_hybrid, train_vanilla_gs
+from sugar_tpu_torch.scripts import (
+    bench,
+    compose_animation,
+    demo_hybrid,
+    microbench_gather,
+    microbench_prims,
+    microbench_sort,
+    profile_raster,
+    profile_trained,
+    train_vanilla_gs,
+)
 from sugar_tpu_torch.scripts import render as render_script
 from sugar_tpu_torch.trainers import coarse as coarse_mod
 from sugar_tpu_torch.trainers import optimizer as opt
@@ -251,6 +273,7 @@ from sugar_tpu_torch.trainers.schedule import iteration_generator
 from sugar_tpu_torch.trainers.vanilla import TrainConfig, make_train_step, train_vanilla_3dgs
 from sugar_tpu_torch.utils import checkpoint as ckpt
 from sugar_tpu_torch.utils.losses import psnr, rgb_loss_l1_dssim
+from sugar_tpu_torch.utils.profiling import card_line, cuda_ms
 
 KERNELS = (tile_composite_cuda, tile_composite_bwd_cuda, segment_sum_cuda)
 
@@ -345,68 +368,13 @@ def _ops_per_eval_bwd(ch: int) -> int:
     return 56 + 4 * ch
 
 
-# --- the scene (numpy, from a seed) -------------------------------------
-
-
-def fibonacci_sphere(n: int) -> np.ndarray:
-    """(n, 3) unit directions, near-uniform (spiral) coverage."""
-    i = np.arange(n, dtype=np.float64) + 0.5
-    phi = np.arccos(1 - 2 * i / n)
-    theta = np.pi * (1 + 5**0.5) * i
-    return np.stack(
-        [np.sin(phi) * np.cos(theta), np.cos(phi), np.sin(phi) * np.sin(theta)], -1
-    )
-
-
-def blob_surface(d: np.ndarray) -> np.ndarray:
-    """Star-shaped radius field r(direction): smooth bumpy blob."""
-    x, y, z = d[:, 0], d[:, 1], d[:, 2]
-    return (
-        0.72
-        + 0.11 * np.sin(3.0 * x + 1.0) * np.sin(2.0 * y)
-        + 0.07 * np.cos(4.0 * z)
-        + 0.05 * np.sin(5.0 * y + 2.0)
-    )
-
-
-def blob_colors(p: np.ndarray) -> np.ndarray:
-    c = 0.5 + 0.45 * np.stack(
-        [
-            np.sin(3.1 * p[:, 0] + 0.3),
-            np.sin(2.7 * p[:, 1] + 1.7),
-            np.sin(3.7 * p[:, 2] + 3.1),
-        ],
-        -1,
-    )
-    return np.clip(c, 0.02, 1.0).astype(np.float32)
-
-
-def scene_trained(n: int, g: np.random.Generator):
-    """bench.py's trained-statistics scene: Gaussians on the surface of a
-    bumpy blob 3.2 in front of the origin, flattened along the normal,
-    opacity 0.85-0.99. Returns (means, scales, quats, opacities, colors)."""
-    d = fibonacci_sphere(n)
-    r = blob_surface(d)
-    means = (d * r[:, None]).astype(np.float32)
-    means += np.array([0.0, 0.0, 3.2], np.float32)
-    spacing = np.sqrt(4 * np.pi * 0.72**2 / n)
-    t_scale = spacing * np.exp(g.uniform(np.log(1.5), np.log(4.0), n))
-    scales = np.stack([t_scale, t_scale, t_scale / 10.0], -1).astype(np.float32)
-    nrm = d.astype(np.float32)
-    z = np.array([0.0, 0.0, 1.0], np.float32)
-    v = np.cross(np.broadcast_to(z, nrm.shape), nrm)
-    w_ = 1.0 + nrm @ z
-    quats = np.concatenate([w_[:, None], v], -1).astype(np.float32)
-    quats /= np.maximum(np.linalg.norm(quats, axis=-1, keepdims=True), 1e-9)
-    opac = g.uniform(0.85, 0.99, n).astype(np.float32)
-    colors = blob_colors(means).astype(np.float32)
-    return means, scales, quats, opac, colors
+# --- the scene (numpy, from a seed; bench.py's, from scripts/bench.py) --
 
 
 def scene_params(n: int, seed: int, sh_degree: int) -> dict[str, np.ndarray]:
     """Raw GaussianParams fields of the scene at ``sh_degree``: sh_dc from
     the blob colors, sh_rest small random values from its own seed."""
-    means, scales, quats, opac, colors = scene_trained(n, np.random.default_rng(seed))
+    means, scales, quats, opac, colors = bench._scene_trained(n, np.random.default_rng(seed))
     k = (sh_degree + 1) ** 2
     rest = np.random.default_rng(seed + 1000).normal(0.0, 0.05, (n, 3, k - 1))
     return dict(
@@ -641,7 +609,7 @@ def pad_fields(d: dict[str, np.ndarray], capacity: int) -> tuple[dict, np.ndarra
 def train_scene_fields(n: int, seed: int) -> dict[str, np.ndarray]:
     """bench.py's _bench_train_step parameters: the trained scene at SH
     degree 0 (sh_rest has no coefficients)."""
-    means, scales, quats, opac, colors = scene_trained(n, np.random.default_rng(seed))
+    means, scales, quats, opac, colors = bench._scene_trained(n, np.random.default_rng(seed))
     return dict(
         xyz=means,
         sh_dc=((colors - 0.5) / C0).astype(np.float32),
@@ -653,29 +621,6 @@ def train_scene_fields(n: int, seed: int) -> dict[str, np.ndarray]:
 
 
 # --- measurement helpers ------------------------------------------------
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds of fn() over reps, from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def tie_mask(n_a, n_b, t_a, t_b) -> torch.Tensor:
@@ -961,7 +906,10 @@ def check_recorded(check, recs: dict, tag: str, label: str) -> dict:
         for fw in recs["K1"]:
             kern = tile_composite_cuda(*fw)
             torch.cuda.synchronize()
-            d = compare(kern, tile_composite_plain(*fw), fw)
+            plain = tile_composite_plain(*fw)
+            d = compare(kern, plain, fw)
+            tie = tie_mask(kern.n_contrib, plain.n_contrib, kern.final_t, plain.final_t)
+            del plain
             print(f"{tag} K1 vs plain, {label}: {json.dumps(d)}; tiles {fw[0].shape[0]}, dup slots "
                   f"{fw[2].shape[1]}, channels {fw[4]}, max_chunks {fw[5]}, deepest tile "
                   f"{int(fw[1].max())} slots, nch max {int(kern.nch.max())}")
@@ -973,7 +921,7 @@ def check_recorded(check, recs: dict, tag: str, label: str) -> dict:
                 paired += 1
                 same = torch.equal(bw[2], kern.nch) and torch.equal(bw[6], kern.final_t)
                 check(same, f"K2 {label}: its recorded nch and final_T are K1's")
-                _, _, e = check_k2(check, kern, fw, bw[4], bw[5], label, tag)
+                _, _, e = check_k2(check, kern, fw, bw[4], bw[5], label, tag, tie=tie)
                 errs["K2"] = max(errs.get("K2", 0.0), e)
             del kern
         if recs["K2"]:
@@ -1045,9 +993,20 @@ def phase_builds() -> None:
                   f"{spill} bytes spill stores")
 
 
-def check_k2(check, fwd: CompositeOut, args, g_img, gt_total, label: str, tag: str = "[3]"):
+def check_k2(check, fwd: CompositeOut, args, g_img, gt_total, label: str, tag: str = "[3]",
+             tie: torch.Tensor | None = None):
     """K2 against its plain version on one case; returns (kernel d_packed,
-    max abs error over the blocks)."""
+    its arguments, max abs error over the blocks).
+
+    ``tie`` (T, P) marks the forward's tie pixels (``tie_mask`` of K1
+    against its plain version): there the two made one include decision
+    differently at T_EPS or the cutoff, and K2 and the plain backward,
+    which redo each decision as their forwards do, differ there by what
+    one slot carries. Where there are any, K2 and its plain version are
+    held to BWD_RTOL on the cotangents with the tie pixels' set to 0 (the
+    other pixels' gradients), and the difference on the whole cotangents
+    is printed beside it. The returned d_packed is the kernel's on the
+    whole cotangents."""
     start, count, dup, tiles_x, ch, max_chunks = args
     bwd_args = (start, count, fwd.nch, dup, g_img, gt_total, fwd.final_t, fwd.entry_p,
                 tiles_x, ch, max_chunks)
@@ -1055,6 +1014,15 @@ def check_k2(check, fwd: CompositeOut, args, g_img, gt_total, label: str, tag: s
     torch.cuda.synchronize()
     plain = tile_composite_bwd_plain(*bwd_args)
     d = compare_bwd(kern, plain, ch)
+    ties = 0 if tie is None else int(tie.sum())
+    if ties:
+        print(f"{tag} K2 vs plain, {label}, whole cotangents ({ties} tie pixels): {json.dumps(d)}")
+        held = bwd_args[:4] + (torch.where(tie[..., None], 0.0, g_img).contiguous(),
+                               torch.where(tie, 0.0, gt_total).contiguous()) + bwd_args[6:]
+        kern_held = tile_composite_bwd_cuda(*held)
+        torch.cuda.synchronize()
+        d = compare_bwd(kern_held, tile_composite_bwd_plain(*held), ch)
+        label = f"{label}, the {ties} tie pixels' cotangents 0"
     print(f"{tag} K2 vs plain, {label}: {json.dumps(d)}")
     check(all(v["ok"] for v in d.values()),
           f"K2 {label} agrees with the plain version within {BWD_RTOL} x max|d| per block")
@@ -1245,7 +1213,7 @@ def phase_card_vs_cpu(check, dev) -> None:
 def phase_fwd_bwd(check, dev, settings) -> dict:
     """bench.py's fwd+bwd at full width: the trained 1M scene's raw arrays,
     loss = sum(image^2), gradients of the five inputs."""
-    arrays = scene_trained(N_GAUSS, np.random.default_rng(SCENE_SEED))
+    arrays = bench._scene_trained(N_GAUSS, np.random.default_rng(SCENE_SEED))
     raw = [torch.as_tensor(x, device=dev).requires_grad_(True) for x in arrays]
 
     def fwd_bwd():
@@ -2986,8 +2954,8 @@ def phase_twopass(check, dev, model, cams, fused_caps, card) -> dict:
 def oracle_scene(device):
     """bench.py's blob at 2^14 Gaussians and a 128x128 camera at the
     origin: (render_fn args, kwargs) for rasterize_gaussians."""
-    means, scales, quats, opac, colors = scene_trained(ORACLE_N,
-                                                       np.random.default_rng(ORACLE_SEED))
+    means, scales, quats, opac, colors = bench._scene_trained(ORACLE_N,
+                                                              np.random.default_rng(ORACLE_SEED))
     cam = make_camera(np.eye(3), np.zeros(3), FOV, FOV, ORACLE_HW, ORACLE_HW, device=device)
     settings = rc.from_camera(cam, bg=torch.tensor([0.1, 0.2, 0.3], device=device))
     t = [torch.as_tensor(x, device=device) for x in (means, scales, quats, opac, colors)]
@@ -3822,6 +3790,104 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
                 errs=errs, wall_s=wall)
 
 
+# --- [16] the measurement entry points ------------------------------------
+
+BENCH_METRICS = ("train_step_rays_per_s_256k_gaussians", "rays_per_s_fwd_bwd_1M_gaussians",
+                 "rays_per_s_fwd_bwd_1M_gaussians_trained_stats")
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "device", "ms_median", "ms_min", "ms_max",
+              "bin_overflow", "tile_overflow")
+STAGE_IMAGE_ATOL = 1e-6
+
+
+def phase_tools(check, card) -> dict:
+    """The port of the JAX package's measurement tools at their full widths:
+    ``scripts.bench.main()`` (its three JSON lines parsed and checked, its
+    launches counted, K1-K3 held to their plain versions on its last
+    fwd+bwd's arguments), ``profile_raster`` and ``profile_trained`` on
+    both scenes (launches, the stage-by-stage image against the one-call
+    render), and the three microbenches (``microbench_sort`` with and
+    without ``extra``). The plain K1-K3 raise throughout, outside the
+    comparisons."""
+    t0 = time.perf_counter()
+    counts = {}
+    buf = io.StringIO()
+    with no_fallback(refuse_fused=False):
+        reset_launches()
+        with recorded_kernel_args(keep_last=1) as recs, contextlib.redirect_stdout(buf):
+            bench_recs = bench.main()
+        counts["bench"] = launches()
+    print(buf.getvalue(), end="")
+    lines = []
+    for line in buf.getvalue().splitlines():
+        try:
+            lines.append(json.loads(line))
+        except json.JSONDecodeError:
+            check(False, f"[16] bench line parses as JSON: {line[:120]}")
+    check(tuple(r.get("metric") for r in lines) == BENCH_METRICS,
+          "[16] bench prints its three metrics, in bench.py's order")
+    for r in lines:
+        check(all(k in r for k in BENCH_KEYS) and r["unit"] == "rays/s" and r["device"] == card
+              and math.isfinite(r["value"]) and r["value"] > 0,
+              f"[16] {r.get('metric')}: every key, rays/s, the card's line, a finite rate")
+        check(r.get("bin_overflow") == 0 and r.get("tile_overflow") == 0,
+              f"[16] {r.get('metric')}: overflow 0")
+    warm = bench_recs[0]["warmup_steps"]
+    timed = warm + bench.ITERS
+    # Each scene: one check forward (K1), one warm-up and ITERS timed fwd+bwd.
+    want = (timed + 2 * (bench.ITERS + 2), timed + 2 * (bench.ITERS + 1),
+            timed + 2 * (bench.ITERS + 1))
+    print(f"[16] bench launches (K1, K2, K3) {counts['bench']} (train step {warm} warm-up + "
+          f"{bench.ITERS} timed, caps {bench_recs[0]['caps']}; expected {want})")
+    check(counts["bench"] == want, "[16] bench: one K1 per render, one K2 and K3 per backward")
+    errs = check_recorded(check, recs, "[16]",
+                          "bench fwd+bwd, 1M trained scene (its last iteration)")
+    check(set(errs) == {"K1", "K2", "K3"}, "[16] bench's last K1, K2 and K3 launches recorded")
+    del recs
+
+    results = {}
+    for name, fn in (("profile_raster", profile_raster.main),
+                     ("profile_trained trained", lambda: profile_trained.main([])),
+                     ("profile_trained random",
+                      lambda: profile_trained.main(["--scene", "random"]))):
+        with no_fallback(refuse_fused=False):
+            reset_launches()
+            res = fn()
+            counts[name] = launches()
+        d = float((res["image_stages"] - res["image_one_call"]).abs().max())
+        print(f"[16] {name}: launches (K1, K2, K3) {counts[name]}; counts "
+              f"{json.dumps(res['counts'])}; stage-by-stage image vs one-call render {d}")
+        check(all(c > 0 for c in counts[name]), f"[16] {name} launched K1, K2 and K3")
+        check(d <= STAGE_IMAGE_ATOL, f"[16] {name}: the stage-by-stage image equals the one-call "
+                                     f"render within {STAGE_IMAGE_ATOL}")
+        results[name] = res["ms"]
+        del res
+
+    prims = []
+    for name, fn in (("microbench_gather", microbench_gather.main),
+                     ("microbench_prims", microbench_prims.main),
+                     ("microbench_sort", lambda: microbench_sort.main([])),
+                     ("microbench_sort extra", lambda: microbench_sort.main(["extra"]))):
+        with no_fallback(refuse_fused=False):
+            reset_launches()
+            recs_ = fn()
+            counts[name] = launches()
+        check(counts[name] == (0, 0, 0), f"[16] {name} runs no compositing kernel")
+        check(all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in recs_),
+              f"[16] {name}: every time finite and positive")
+        prims += [dict(r, tool=name) for r in recs_]
+    print(f"[16] primitive costs on {card} (CUDA events):")
+    for r in prims:
+        print(f"    {r['tool']:22s} {r['label']:44s} {r['ms']:10.4f} ms "
+              f"{r['ns_per']:9.4f} ns/{r['unit']}")
+    wall = time.perf_counter() - t0
+    total = tuple(sum(c) for c in zip(*counts.values()))
+    print(f"[16] summary on {card}: {wall:.1f} s; bench "
+          + ", ".join(f"{r['metric']} {r['value']:.0f} rays/s (median {r['ms_median']:.3f} ms, "
+                      f"{r['ms_min']:.3f}-{r['ms_max']:.3f})" for r in lines)
+          + f"; launches (K1, K2, K3) all {total}; kernels vs plain {json.dumps(errs)}")
+    return dict(launches=total, errs=errs, wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -3927,7 +3993,9 @@ def main() -> int:
     g_img, g_t = composite_cotangents(num_tiles, 3, seed=11)
     g_img = torch.as_tensor(g_img, device=dev)
     gt_total = torch.as_tensor(g_t, device=dev).contiguous()
-    d_packed, bwd_args, k2_err = check_k2(check, kern, fw_args, g_img, gt_total, "full width")
+    d_packed, bwd_args, k2_err = check_k2(
+        check, kern, fw_args, g_img, gt_total, "full width",
+        tie=tie_mask(kern.n_contrib, plain.n_contrib, kern.final_t, plain.final_t))
     gid = b["gid"]
     n = N_GAUSS
     gid_sorted, perm = torch.sort(gid, stable=True)
@@ -3950,7 +4018,8 @@ def main() -> int:
 
     # The JAX counts are of bench.py's raw arrays (activated opacity and
     # scales, flat colors); bin those the same way.
-    means, scales, quats, opac, colors = scene_trained(N_GAUSS, np.random.default_rng(SCENE_SEED))
+    means, scales, quats, opac, colors = bench._scene_trained(N_GAUSS,
+                                                              np.random.default_rng(SCENE_SEED))
     with torch.no_grad():
         raw = [torch.as_tensor(x, device=dev) for x in (means, scales, quats, opac, colors)]
         prep_raw = preprocess(raw[0], raw[3], settings, scales=raw[1], quaternions=raw[2],
@@ -4167,22 +4236,26 @@ def main() -> int:
     pr = phase_parallel(check, dev, card, view_caps, tr["targets"], co, ex)
     shutil.rmtree(WORK, ignore_errors=True)
 
+    # [16] the measurement entry points: the bench, the profiles, the
+    # microbenches.
+    tl = phase_tools(check, card)
+
     k1n, k2n, k3n = (sum(c) for c in zip(tr["launches"], ex["launches"], rf["launches"],
                                          tx["launches"], pl["launches"], launches14,
-                                         pr["launches"]))
+                                         pr["launches"], tl["launches"]))
     # max_abs_err: the largest over the comparisons at the paths' shapes
     # ([3] view 0 of the 1M scene, [10] the depth render, [11] a refine
     # step, [12] the bake's render, [13] each pipeline stage's last
     # launches, [14] the two-pass fwd+bwd at view 0 of the 1M scene, the
     # oracle scene's last two-pass render, the last launches of
     # scripts.render and train_vanilla_gs, [15] each rank's band of the
-    # tile-sharded fwd+bwd and train step).
+    # tile-sharded fwd+bwd and train step, [16] the bench's last fwd+bwd).
     k1_err = max(k1_err, ex["k1_err"], rf["errs"]["K1"], tx["k1_err"], pl["errs"]["K1"],
-                 errs14["K1"], pr["errs"].get("K1", 0.0))
+                 errs14["K1"], pr["errs"].get("K1", 0.0), tl["errs"].get("K1", 0.0))
     k2_err = max(k2_err, rf["errs"]["K2"], pl["errs"]["K2"], errs14["K2"],
-                 pr["errs"].get("K2", 0.0))
+                 pr["errs"].get("K2", 0.0), tl["errs"].get("K2", 0.0))
     k3_err = max(k3_err, rf["errs"]["K3"], pl["errs"]["K3"], errs14["K3"],
-                 pr["errs"].get("K3", 0.0))
+                 pr["errs"].get("K3", 0.0), tl["errs"].get("K3", 0.0))
     kernels = [
         dict(name="tile_composite_fwd", route="cuda",
              source="sugar_tpu_torch/csrc/tile_composite.cu",

@@ -126,3 +126,11 @@ class Cameras:
             tan_half_fov_y=c0.tan_half_fov_y,
         )
 
+
+def spatial_extent(cam_centers: torch.Tensor) -> torch.Tensor:
+    """1.1 x the largest distance of the camera centers (M, 3) from their
+    mean: the reference's ``get_spatial_extent`` (sugar_scene/cameras.py:
+    418-545) and the nerf++ radius (dataset_readers.py:45-66)."""
+    center = torch.mean(cam_centers, dim=0, keepdim=True)
+    dist = torch.linalg.norm(cam_centers - center, dim=-1)
+    return 1.1 * torch.max(dist)

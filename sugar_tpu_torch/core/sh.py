@@ -1,4 +1,4 @@
-"""Real spherical harmonics, degrees 0..3, in the 3DGS basis ordering.
+"""Real spherical harmonics, degrees 0..4, in the 3DGS basis ordering.
 
 Port of ``sugar_tpu/core/sh.py``: colors are ``max(eval_sh(deg, sh, dir) +
 0.5, 0)`` with ``dir`` the unit vector from camera to Gaussian, as in the
@@ -28,6 +28,19 @@ C3 = (
     1.445305721320277,
     -0.5900435899266435,
 )
+C4 = (
+    2.5033429417967046,
+    -1.7701307697799304,
+    0.9461746957575601,
+    -0.6690465435572892,
+    0.10578554691520431,
+    -0.6690465435572892,
+    0.47308734787878004,
+    -1.7701307697799304,
+    0.6258357354491761,
+)
+
+
 def num_sh_coeffs(degree: int) -> int:
     """Number of SH coefficients for a given max degree: (deg+1)^2."""
     return (degree + 1) ** 2
@@ -37,14 +50,14 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """Evaluate the SH basis at unit directions.
 
     Args:
-      deg: 0..3.
+      deg: 0..4.
       sh: ``(..., C, (deg+1)^2)`` coefficients, channel-major.
       dirs: ``(..., 3)`` unit directions.
 
     Returns:
       ``(..., C)`` values (no +0.5 offset, no clamping).
     """
-    assert 0 <= deg <= 3
+    assert 0 <= deg <= 4
     result = C0 * sh[..., 0]
     if deg > 0:
         x = dirs[..., 0:1]
@@ -78,6 +91,21 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
                     + C3[5] * z * (xx - yy) * sh[..., 14]
                     + C3[6] * x * (xx - 3 * yy) * sh[..., 15]
                 )
+                if deg > 3:
+                    result = (
+                        result
+                        + C4[0] * xy * (xx - yy) * sh[..., 16]
+                        + C4[1] * yz * (3 * xx - yy) * sh[..., 17]
+                        + C4[2] * xy * (7 * zz - 1) * sh[..., 18]
+                        + C4[3] * yz * (7 * zz - 3) * sh[..., 19]
+                        + C4[4] * (zz * (35 * zz - 30) + 3) * sh[..., 20]
+                        + C4[5] * xz * (7 * zz - 3) * sh[..., 21]
+                        + C4[6] * (xx - yy) * (7 * zz - 1) * sh[..., 22]
+                        + C4[7] * xz * (xx - 3 * yy) * sh[..., 23]
+                        + C4[8]
+                        * (xx * (xx - 3 * yy) - yy * (3 * xx - yy))
+                        * sh[..., 24]
+                    )
     return result
 
 

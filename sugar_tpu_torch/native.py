@@ -132,6 +132,16 @@ def _load_qem() -> ctypes.CDLL:
     return lib
 
 
+def qem_available() -> bool:
+    """True when the host QEM library builds and loads (the JAX package's
+    ``sugar_tpu.native.qem_available``)."""
+    try:
+        _load_qem()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def qem_decimate(
     vertices: np.ndarray, faces: np.ndarray, target_vertices: int
 ) -> tuple[np.ndarray, np.ndarray]:

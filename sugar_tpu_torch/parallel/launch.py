@@ -63,7 +63,10 @@ def choose_backend(world: int, device: str) -> str:
 
 def rank_device(rank: int, device: str) -> torch.device:
     if device == "cuda":
-        return torch.device("cuda", rank % torch.cuda.device_count())
+        count = torch.cuda.device_count()
+        if count == 0:
+            raise RuntimeError("device 'cuda' asked for, but there is no CUDA card")
+        return torch.device("cuda", rank % count)
     if device == "cpu":
         return torch.device("cpu")
     raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")

@@ -24,6 +24,7 @@ import torch
 import torch.distributed as dist
 
 from sugar_tpu_torch.parallel import comm
+from sugar_tpu_torch.parallel.launch import rank_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,9 +74,10 @@ def world_axis() -> Axis:
 
 
 def make_mesh(n_data: int | None = None, n_gauss: int | None = None,
-              device: torch.device | str = "cpu") -> Mesh:
+              device: torch.device | str | None = None) -> Mesh:
     """A (data, gauss) mesh over every rank; every rank must call it.
-    Defaults: all ranks on ``data`` (pure camera parallelism)."""
+    Defaults: all ranks on ``data`` (pure camera parallelism), and this
+    rank's CUDA card (``launch.rank_device``) as the device."""
     n = dist.get_world_size()
     if n_data is None and n_gauss is None:
         n_data, n_gauss = n, 1
@@ -92,6 +94,8 @@ def make_mesh(n_data: int | None = None, n_gauss: int | None = None,
     for j in range(n_gauss):
         a = new_axis(i * n_gauss + j for i in range(n_data))
         data = a or data
+    if device is None:
+        device = rank_device(dist.get_rank(), "cuda")
     return Mesh(data=data, gauss=gauss, world=world_axis(), device=torch.device(device))
 
 

@@ -35,7 +35,7 @@ def _unit(g, n):
     return d / np.linalg.norm(d, axis=-1, keepdims=True)
 
 
-@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
 def test_eval_sh(deg):
     g = np.random.default_rng(deg)
     k = (deg + 1) ** 2
@@ -157,3 +157,12 @@ def test_losses(name):
     t = getattr(tloss, name)(torch.tensor(a), torch.tensor(b))
     j = getattr(jloss, name)(jnp.asarray(a), jnp.asarray(b))
     np.testing.assert_allclose(float(t), float(j), rtol=1e-5, atol=1e-6)
+
+
+def test_spatial_extent():
+    g = np.random.default_rng(7)
+    centers = g.normal(0, 2.0, (12, 3)).astype(np.float32)
+    t = tcam.spatial_extent(torch.tensor(centers))
+    j = jcam.spatial_extent(jnp.asarray(centers))
+    assert t.shape == ()
+    np.testing.assert_allclose(float(t), float(j), rtol=1e-6)

@@ -56,7 +56,9 @@ def test_port_has_the_slice_modules():
               "scripts.run_parity", "scripts.full_eval", "scripts.convert",
               "parallel.launch", "parallel.comm", "parallel.mesh", "parallel.render",
               "parallel.train", "parallel.trainer", "parallel.knn", "parallel.coarse",
-              "parallel.refine", "parallel.meshing", "scripts.scaling_report"):
+              "parallel.refine", "parallel.meshing", "scripts.scaling_report", "scripts.bench",
+              "scripts.profile_raster", "scripts.profile_trained", "scripts.microbench_gather",
+              "scripts.microbench_prims", "scripts.microbench_sort"):
         assert f"sugar_tpu_torch.{m}" in mods, m
 
 
@@ -94,6 +96,8 @@ def test_importing_builds_nothing():
         "import sugar_tpu_torch.scripts.metrics, sugar_tpu_torch.viewer.network_gui\n"
         "from sugar_tpu_torch.scripts import render, train_vanilla_gs, demo_hybrid\n"
         "from sugar_tpu_torch.scripts import compose_animation, run_parity, full_eval, convert\n"
+        "from sugar_tpu_torch.scripts import bench, profile_raster, profile_trained\n"
+        "from sugar_tpu_torch.scripts import microbench_gather, microbench_prims, microbench_sort\n"
         "after = sorted(os.listdir(n._BUILD)) if os.path.isdir(n._BUILD) else []\n"
         "assert before == after, (before, after)\n"
         "assert 'PIL' not in sys.modules\n"

@@ -37,6 +37,7 @@ from sugar_tpu.meshing import levelset as jlevelset
 from sugar_tpu.meshing import meshops as jmeshops
 from sugar_tpu.meshing import poisson as jpoisson
 from sugar_tpu.models import gaussians as jgm
+from sugar_tpu.native import qem_available as jqem_available
 from sugar_tpu.native import qem_decimate as jqem_decimate
 from sugar_tpu_torch import native
 from sugar_tpu_torch.core.cameras import make_camera
@@ -169,6 +170,18 @@ def test_decimate_raises_when_the_qem_build_fails(sphere64, monkeypatch, tmp_pat
     # Under the vertex budget nothing is decimated and nothing is built.
     v, f = meshops.decimate(sphere64.vertices, sphere64.faces, len(sphere64.vertices))
     eq(v, sphere64.vertices)
+
+
+def test_qem_available_matches_jax(monkeypatch, tmp_path):
+    """True where the host library builds and loads (g++ here), as in the
+    JAX package; False when the build fails."""
+    assert native.qem_available() is jqem_available() is True
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(native, "_BUILD", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_libs", {})
+    assert native.qem_available() is False
+    monkeypatch.setattr(native, "CXX", "false")
+    assert native.qem_available() is False
 
 
 def test_vertex_clustering_and_normals_match_jax(sphere64):

@@ -27,7 +27,7 @@ import torch.distributed as dist
 from sugar_tpu_torch.core.cameras import make_camera
 from sugar_tpu_torch.parallel import comm
 from sugar_tpu_torch.parallel.launch import RankError, run_ranks
-from sugar_tpu_torch.parallel.mesh import Axis, new_axis, world_axis
+from sugar_tpu_torch.parallel.mesh import Axis, make_mesh, new_axis, world_axis
 from sugar_tpu_torch.parallel.render import gather_band, render_sharded
 from sugar_tpu_torch.raster.common import from_camera
 
@@ -255,3 +255,20 @@ def test_a_failing_rank_raises_in_the_caller():
         run_ranks(raise_on_rank_one, 2, device="cpu", threads=1)
     assert time.perf_counter() - t0 < 60
     assert multiprocessing.active_children() == []
+
+
+def test_make_mesh_defaults_to_the_ranks_card(tmp_path, monkeypatch):
+    """Without ``device`` the mesh lives on the rank's CUDA card
+    (``launch.rank_device``), as the JAX mesh takes the real devices; with
+    no card that default raises, and the CPU is asked for by name."""
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        assert make_mesh(device="cpu").device == torch.device("cpu")
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            make_mesh()
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        assert make_mesh().device == torch.device("cuda", 0)
+    finally:
+        dist.destroy_process_group()

@@ -20,11 +20,13 @@ from sugar_tpu.models import gaussians as jgm
 from sugar_tpu.models.render import render_model as jrender_model
 from sugar_tpu.raster import adaptive as jadaptive
 from sugar_tpu_torch.core.cameras import make_camera
+from sugar_tpu_torch.eval import parity as tparity
 from sugar_tpu_torch.interop import model_from_numpy, params_from_numpy
 from sugar_tpu_torch.models import gaussians as tgm
 from sugar_tpu_torch.models.render import render_model, render_params
 from sugar_tpu_torch.raster import adaptive
 from sugar_tpu_torch.raster.api import resolve_mode
+from sugar_tpu_torch.scripts import bench as tbench
 
 torch.set_num_threads(2)
 
@@ -218,11 +220,14 @@ def test_interop_requires_every_field():
 
 
 def test_chip_smoke_scene_is_the_bench_scene():
-    """chip_smoke's copy of the scene builders equals the JAX package's."""
-    d = chip_smoke.fibonacci_sphere(1000)
+    """chip_smoke's scene is the port's bench scene (``scripts/bench.py``,
+    whose blob builders are ``eval/parity.py``'s), and those builders
+    equal the JAX package's."""
+    assert chip_smoke.bench is tbench
+    d = tparity._fibonacci_sphere(1000)
     np.testing.assert_array_equal(d, jparity._fibonacci_sphere(1000))
-    np.testing.assert_array_equal(chip_smoke.blob_surface(d), jparity.blob_surface(d))
-    np.testing.assert_array_equal(chip_smoke.blob_colors(d), jparity.blob_colors(d))
+    np.testing.assert_array_equal(tparity.blob_surface(d), jparity.blob_surface(d))
+    np.testing.assert_array_equal(tparity.blob_colors(d), jparity.blob_colors(d))
     arrays = chip_smoke.scene_params(2000, 1, 3)
     assert arrays["sh_rest"].shape == (2000, 3, 15)
     assert all(v.dtype == np.float32 for v in arrays.values())

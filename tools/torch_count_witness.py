@@ -37,6 +37,7 @@ import chip_smoke  # noqa: E402  (the scene and cameras, numpy + torch only)
 from sugar_tpu_torch.raster import common as rc  # noqa: E402
 from sugar_tpu_torch.raster.fused import bin_fused, default_big_cap  # noqa: E402
 from sugar_tpu_torch.raster.preprocess import Preprocessed, preprocess  # noqa: E402
+from sugar_tpu_torch.scripts import bench  # noqa: E402
 
 INT_FIELDS = ("radius", "tiles_touched", "rect_min", "rect_max")
 FLOAT_FIELDS = ("mean2d", "conic", "opacity", "depth")
@@ -115,7 +116,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=chip_smoke.N_GAUSS, help="number of Gaussians")
     n = ap.parse_args().n
-    arrays = chip_smoke.scene_trained(n, np.random.default_rng(chip_smoke.SCENE_SEED))
+    arrays = bench._scene_trained(n, np.random.default_rng(chip_smoke.SCENE_SEED))
     res: dict = {"scene": f"{n} Gaussians, view 0, {chip_smoke.H}x{chip_smoke.W}",
                  "jax_tpu_record": dict(zip(("num_rendered", "max_tile_count"),
                                             chip_smoke.JAX_TPU_RECORD))}
