@@ -144,8 +144,21 @@ together), then:
    one-call render of the same path within 1e-6), and
    ``microbench_{gather,prims,sort}`` (``sort`` also in its ``extra``
    mode), each time beside its cost per key, lookup or added element;
+17. colour widths above the kernels' instantiations: (a) view 0 of the 1M
+   model through ``rasterize_gaussians(mode="pallas")`` with C = 3, 8 and
+   13 colour channels (its SH-3 colours, then seeded extra channels and a
+   C-wide background), forward and backward under a seeded image
+   cotangent, with the plain K1-K3 made to raise: one K1 and K2 launch per
+   group of at most 4 channels and one K3 launch per block of at most 16
+   rows, K1, K2 and K3 held to their plain versions on the recorded
+   arguments, the groups' final_T, n_contrib, entry_p and nch bit-equal,
+   the C = 8 render's first three channels, final_T and n_contrib against
+   the C = 3 render's, and each kernel's ms and bound at each C; (b) the
+   bench-scale section of ``scripts.scaling_report`` (the tile-sharded and
+   coarse 'sdf' steps at capacity 2^20) at 2 ranks sharing the card, its
+   table rows and the peak GB per rank;
    then prints the kernels line (launches summed over 7, 10, 11, 12, 13,
-   14, 15 and 16), the card line, and last ``{"ok": true, "device":
+   14, 15, 16 and 17), the card line, and last ``{"ok": true, "device":
    {...}}`` — only when every check passed.
 
 Each path runs with the launch counts set to 0 just before it and read
@@ -175,7 +188,7 @@ import torch.distributed as dist
 from sugar_tpu_torch import native
 from sugar_tpu_torch.core.cameras import make_camera
 from sugar_tpu_torch.core.quaternions import normalize as quat_normalize
-from sugar_tpu_torch.core.sh import C0, sh0_to_rgb
+from sugar_tpu_torch.core.sh import C0, sh0_to_rgb, sh_to_rgb
 from sugar_tpu_torch.fields import density as df
 from sugar_tpu_torch.fields.knn import _sq_dists as knn_sq_dists
 from sugar_tpu_torch.fields.knn import knn
@@ -263,6 +276,7 @@ from sugar_tpu_torch.scripts import (
     microbench_sort,
     profile_raster,
     profile_trained,
+    scaling_report,
     train_vanilla_gs,
 )
 from sugar_tpu_torch.scripts import render as render_script
@@ -953,8 +967,9 @@ def ptxas_report(log: str, args: tuple[str, ...] = ("3",)) -> list[tuple[str, in
     """(kernel, registers, static shared-memory bytes, spill-store bytes)
     per entry function of an ``nvcc -Xptxas -v`` log, names demangled
     with c++filt where it exists; of templated kernels only the instances
-    whose template argument is in ``args`` (the main path's: CH=3 for the
-    compositing kernels, 9 and 16 rows for K3)."""
+    whose template argument is in ``args`` (the main paths': CH 3, and CH
+    4 and 1 for [17]'s channel groups, for the compositing kernels; 9 and
+    16 rows, and [17]'s 14 and 3, for K3)."""
     rows, name, spill = [], None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -988,7 +1003,8 @@ def phase_builds() -> None:
           f"{time.perf_counter() - t0:.2f} s wall")
     for name, (secs, log) in built.items():
         print(f"    {name}: {secs:.2f} s")
-        for fn, regs, smem, spill in ptxas_report(log, ("9", "16") if name == "segsum" else ("3",)):
+        wanted = ("3", "9", "14", "16") if name == "segsum" else ("1", "3", "4")
+        for fn, regs, smem, spill in ptxas_report(log, wanted):
             print(f"      ptxas: {fn}: {regs} registers, {smem} bytes smem, "
                   f"{spill} bytes spill stores")
 
@@ -3888,6 +3904,143 @@ def phase_tools(check, card) -> dict:
     return dict(launches=total, errs=errs, wall_s=wall)
 
 
+# [17] colour widths above the kernels' instantiations.
+WIDE_CH = (8, 13)
+WIDE_SEED = 17
+WIDE_SAME_ATOL = 1e-6  # the C = 8 render's first channels against the C = 3 render's
+BENCH_USES = {"tile-sharded": {"all_gather", "all_to_all", "reduce_scatter", "all_reduce"},
+              "coarse-sdf": {"all_gather", "all_reduce"}}
+
+
+def wide_fwd_bwd(model, settings, colours, kw: dict, g_img):
+    """rasterize_gaussians(mode="pallas") of ``model`` with explicit
+    ``colours`` (N, C) and the image cotangent ``g_img`` (H, W, C): the
+    render and the gradients of means, opacities and colours."""
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (model.params.xyz, model.opacities, colours)]
+    out = rasterize_gaussians(leaves[0], leaves[1], settings, scales=model.scales,
+                              quaternions=model.quaternions, colors=leaves[2],
+                              alive_mask=model.alive, mode="pallas", **kw)
+    return out, torch.autograd.grad(out["image"], leaves, g_img)
+
+
+def check_groups_agree(check, fw: tuple, label: str) -> None:
+    """K1's channel groups on one recorded wide call, each launched alone:
+    final_T, n_contrib, nch and entry_p (on the processed rows) are the
+    same bits in every group."""
+    start, count, dup, tiles_x, ch, mc = fw
+    outs = [tc_mod._launch_fwd(start, count, tc_mod.group_rows(dup, c0, c1), tiles_x, c1 - c0, mc)
+            for c0, c1 in tc_mod.channel_groups(ch)]
+    a = outs[0]
+    rows = torch.arange(a.entry_p.shape[1], device=a.nch.device)
+    done = (rows[None, :] < a.nch[:, None])[:, :, None]
+    same = all(torch.equal(o.final_t, a.final_t) and torch.equal(o.n_contrib, a.n_contrib)
+               and torch.equal(o.nch, a.nch)
+               and torch.equal(torch.where(done, o.entry_p, 0.0), torch.where(done, a.entry_p, 0.0))
+               for o in outs[1:])
+    check(same, f"[17] K1 {label}: the {len(outs)} channel groups' final_T, n_contrib, nch and "
+                f"entry_p are bit-equal")
+
+
+def phase_channels(check, dev, model, cam, caps, card) -> dict:
+    """[17] (a) view 0 of the 1M model at C = 3, 8 and 13 colour channels,
+    forward and backward through K1-K3 in channel groups and row blocks;
+    (b) scaling_report's bench-scale section at 2 ranks on the card."""
+    t0 = time.perf_counter()
+    settings = rc.from_camera(cam, device=dev)
+    kw = caps_kw(caps)
+    n = model.capacity
+    with torch.no_grad():
+        dirs = model.params.xyz - settings.campos
+        dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
+        sh_cols = sh_to_rgb(model.sh_degree, model.sh, dirs)
+    g = np.random.default_rng(WIDE_SEED)
+    extra = torch.as_tensor(g.uniform(0, 1, (n, max(WIDE_CH) - 3)).astype(np.float32), device=dev)
+    bg = torch.cat([settings.bg, torch.as_tensor(
+        g.uniform(0, 1, max(WIDE_CH) - 3).astype(np.float32), device=dev)])
+    renders, counts, errs = {}, {}, {}
+    for ch in (3,) + WIDE_CH:
+        colours = torch.cat([sh_cols, extra[:, :ch - 3]], dim=1)
+        st = dataclasses.replace(settings, bg=bg[:ch])
+        g_img = torch.as_tensor(g.normal(size=(H, W, ch)).astype(np.float32), device=dev)
+        with no_fallback(refuse_fused=False):
+            reset_launches()
+            with recorded_kernel_args() as recs:
+                out, grads = wide_fwd_bwd(model, st, colours, kw, g_img)
+            torch.cuda.synchronize()
+            counts[ch] = launches()
+        groups = len(tc_mod.channel_groups(ch))
+        blocks = -(-(6 + ch) // segsum_mod.MAX_ROWS)
+        ovf = adaptive.read_overflow(out)
+        print(f"[17] C = {ch}: launches (K1, K2, K3) {counts[ch]} ({groups} channel groups, "
+              f"{blocks} row blocks of {6 + ch} rows); overflow {json.dumps(ovf)}")
+        check(counts[ch] == (groups, groups, blocks),
+              f"[17] C = {ch}: one K1 and one K2 launch per channel group, one K3 per row block")
+        check(all(ovf[k] == 0 for k in ("bin_overflow", "big_overflow", "cap_overflow",
+                                        "tile_overflow")), f"[17] C = {ch}: overflow 0")
+        check(tuple(out["image"].shape) == (H, W, ch) and bool(torch.isfinite(out["image"]).all())
+              and all(bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0 for x in grads),
+              f"[17] C = {ch}: image finite, {H}x{W}x{ch}; gradients finite and nonzero")
+        renders[ch] = {k: out[k].detach() for k in ("image", "final_T", "n_contrib")}
+        del out, grads
+        e = check_recorded(check, recs, "[17]", f"C = {ch}, view 0 of the 1M scene")
+        check(set(e) == {"K1", "K2", "K3"}, f"[17] C = {ch}: K1, K2 and K3 recorded and checked")
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        fw, bw, k3 = recs["K1"][-1], recs["K2"][-1], recs["K3"][-1]
+        if groups > 1:
+            check_groups_agree(check, fw, f"C = {ch}")
+        nch = bw[2]
+        live = int((k3[1] < k3[2]).sum())
+        times = dict(
+            K1=(cuda_ms(lambda: tile_composite_cuda(*fw), reps=10, warmup=1),
+                composite_bound(fw[0], fw[1], nch, ch, fw[5])),
+            K2=(cuda_ms(lambda: tile_composite_bwd_cuda(*bw), reps=10, warmup=1),
+                composite_bwd_bound(fw[0], fw[1], nch, ch, fw[5], fw[2].shape[1])),
+            K3=(cuda_ms(lambda: segment_sum_cuda(*k3), reps=20, warmup=1),
+                segsum_bound(6 + ch, live, k3[2])))
+        print(f"[17] C = {ch} on {card}, view 0 (CUDA events, whole wrapper call): "
+              + "; ".join(f"{k} {ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}"
+                          for k, (ms, b) in times.items()))
+        del recs, fw, bw, k3
+    a, b = renders[3], renders[8]
+    d = max(float((b["image"][..., :3] - a["image"]).abs().max()),
+            float((b["final_T"] - a["final_T"]).abs().max()))
+    same_n = torch.equal(b["n_contrib"], a["n_contrib"])
+    bit = torch.equal(b["image"][..., :3], a["image"]) and torch.equal(b["final_T"], a["final_T"])
+    print(f"[17] C = 8 render against C = 3: first three channels and final_T max abs diff {d} "
+          f"(bit-equal {bit}), n_contrib equal {same_n}")
+    check(d <= WIDE_SAME_ATOL and same_n,
+          f"[17] the C = 8 render's first three channels, final_T and n_contrib equal the C = 3 "
+          f"render's within {WIDE_SAME_ATOL}")
+    wall_a = time.perf_counter() - t0
+
+    # (b) the bench-scale section at 2 ranks sharing the card.
+    t1 = time.perf_counter()
+    with plain_refused_in_ranks():
+        rows = scaling_report.bench_scale([2], scaling_report.BENCH_CAPACITY,
+                                          scaling_report.BENCH_WIDTH, scaling_report.BENCH_RES,
+                                          scaling_report.BENCH_SAMPLES)
+    for line in scaling_report.bench_scale_lines(rows, scaling_report.BENCH_CAPACITY, card):
+        print(f"[17] {line}")
+    for r in rows:
+        used = {op for op in comm.OPS if r["counts"][op] > 0}
+        check(used == BENCH_USES[r["step"]] and r["counts"]["host_staged"] > 0,
+              f"[17] bench scale {r['step']}, {r['world']} ranks: bytes for the ops it uses "
+              f"({sorted(used)}), host-staged bytes under gloo")
+        check(all(p is not None and 0 < p < 80 for p in r["peak_gb_by_rank"]),
+              f"[17] bench scale {r['step']}: peak GB per rank {r['peak_gb_by_rank']}")
+        check(all(all(c > 0 for c in rank) for rank in r["launches"]),
+              f"[17] bench scale: every rank launched K1, K2 and K3 {r['launches']}")
+    wall_b = time.perf_counter() - t1
+    total = tuple(sum(c) for c in zip(*counts.values()))
+    print(f"[17] summary on {card}: (a) {wall_a:.1f} s, (b) {wall_b:.1f} s; launches (K1, K2, K3) "
+          + ", ".join(f"C = {ch} {c}" for ch, c in counts.items())
+          + f"; kernels vs plain {json.dumps(errs)}; bench scale peak GB per rank "
+          + ", ".join(f"{r['step']} {r['peak_gb']:.3f}" for r in rows))
+    return dict(launches=total, errs=errs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -4240,22 +4393,28 @@ def main() -> int:
     # microbenches.
     tl = phase_tools(check, card)
 
+    # [17] more colour channels than the kernels' instantiations; the
+    # bench-scale section of scaling_report at 2 ranks.
+    wc = phase_channels(check, dev, model, cams[0], view_caps[0], card)
+
     k1n, k2n, k3n = (sum(c) for c in zip(tr["launches"], ex["launches"], rf["launches"],
                                          tx["launches"], pl["launches"], launches14,
-                                         pr["launches"], tl["launches"]))
+                                         pr["launches"], tl["launches"], wc["launches"]))
     # max_abs_err: the largest over the comparisons at the paths' shapes
     # ([3] view 0 of the 1M scene, [10] the depth render, [11] a refine
     # step, [12] the bake's render, [13] each pipeline stage's last
     # launches, [14] the two-pass fwd+bwd at view 0 of the 1M scene, the
     # oracle scene's last two-pass render, the last launches of
     # scripts.render and train_vanilla_gs, [15] each rank's band of the
-    # tile-sharded fwd+bwd and train step, [16] the bench's last fwd+bwd).
+    # tile-sharded fwd+bwd and train step, [16] the bench's last fwd+bwd,
+    # [17] view 0 at C = 3, 8 and 13).
     k1_err = max(k1_err, ex["k1_err"], rf["errs"]["K1"], tx["k1_err"], pl["errs"]["K1"],
-                 errs14["K1"], pr["errs"].get("K1", 0.0), tl["errs"].get("K1", 0.0))
+                 errs14["K1"], pr["errs"].get("K1", 0.0), tl["errs"].get("K1", 0.0),
+                 wc["errs"].get("K1", 0.0))
     k2_err = max(k2_err, rf["errs"]["K2"], pl["errs"]["K2"], errs14["K2"],
-                 pr["errs"].get("K2", 0.0), tl["errs"].get("K2", 0.0))
+                 pr["errs"].get("K2", 0.0), tl["errs"].get("K2", 0.0), wc["errs"].get("K2", 0.0))
     k3_err = max(k3_err, rf["errs"]["K3"], pl["errs"]["K3"], errs14["K3"],
-                 pr["errs"].get("K3", 0.0), tl["errs"].get("K3", 0.0))
+                 pr["errs"].get("K3", 0.0), tl["errs"].get("K3", 0.0), wc["errs"].get("K3", 0.0))
     kernels = [
         dict(name="tile_composite_fwd", route="cuda",
              source="sugar_tpu_torch/csrc/tile_composite.cu",

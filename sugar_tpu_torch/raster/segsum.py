@@ -5,6 +5,11 @@ Port of ``sugar_tpu/raster/segsum.py`` (``segment_sum_sorted`` over the
 Pallas kernel ``_kernel``). On CUDA tensors ``segment_sum_sorted``
 launches the hand-written Hopper kernel ``csrc/segsum.cu``; on CPU tensors
 it runs ``segment_sum_plain``. For a CUDA tensor there is no fallback.
+
+The kernel is instantiated for 1..MAX_ROWS rows. More rows (the Pallas
+kernel takes any count) are summed in row blocks of at most MAX_ROWS, one
+launch per block into that block's rows of the output: rows are summed
+independently, so the blocks' sums are bit-equal to one wide launch's.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ def _kernel_fn():
     return fn
 
 
-MAX_ROWS = 16  # the kernel's row counts: 1..MAX_ROWS
+MAX_ROWS = 16  # rows per kernel launch; more go in row blocks
 
 
 def _check(ct: torch.Tensor, gid: torch.Tensor, n: int) -> None:
@@ -48,8 +53,8 @@ def _check(ct: torch.Tensor, gid: torch.Tensor, n: int) -> None:
         raise ValueError(f"gid is on {gid.device}, ct on {ct.device}")
     if ct.dtype != torch.float32 or ct.dim() != 2 or not ct.is_contiguous():
         raise ValueError("ct must be a contiguous 2-D float32 tensor")
-    if not 1 <= ct.shape[0] <= MAX_ROWS:
-        raise ValueError(f"ct must have 1 to {MAX_ROWS} rows, got {ct.shape[0]}")
+    if ct.shape[0] < 1:
+        raise ValueError("ct must have 1 or more rows")
     if gid.dtype != torch.int32 or gid.dim() != 1 or not gid.is_contiguous():
         raise ValueError("gid must be a contiguous 1-D int32 tensor")
     if gid.shape[0] != ct.shape[1]:
@@ -60,12 +65,31 @@ def _check(ct: torch.Tensor, gid: torch.Tensor, n: int) -> None:
 
 def _launch(ct: torch.Tensor, gid: torch.Tensor, n: int, out: torch.Tensor) -> torch.Tensor:
     """Launch the kernel into ``out`` (rows, n), which it overwrites
-    entirely, on the current stream; counts the launch."""
+    entirely, on the current stream: one launch per row block
+    (``row_blocks``), each counted."""
     _check(ct, gid, n)
     if out.shape != (ct.shape[0], n) or out.dtype != torch.float32 or not out.is_contiguous():
         raise ValueError(f"out must be a contiguous float32 ({ct.shape[0]}, {n}) tensor")
     if out.device != ct.device:
         raise ValueError(f"out is on {out.device}, ct on {ct.device}")
+    return row_blocks(ct, gid, n, out)
+
+
+def row_blocks(ct: torch.Tensor, gid: torch.Tensor, n: int, out: torch.Tensor) -> torch.Tensor:
+    """Rows r0:r0+MAX_ROWS of ``ct`` into the same rows of ``out``, one
+    ``_launch_block`` each (row slices of contiguous arrays are
+    contiguous); up to MAX_ROWS rows, one launch of the whole input."""
+    if ct.shape[0] <= MAX_ROWS:
+        _launch_block(ct, gid, n, out)
+        return out
+    for r0 in range(0, ct.shape[0], MAX_ROWS):
+        _launch_block(ct[r0 : r0 + MAX_ROWS], gid, n, out[r0 : r0 + MAX_ROWS])
+    return out
+
+
+def _launch_block(ct: torch.Tensor, gid: torch.Tensor, n: int, out: torch.Tensor) -> None:
+    """One launch of csrc/segsum.cu on checked inputs of at most MAX_ROWS
+    rows; counts it."""
     fn = _kernel_fn()
     with torch.cuda.device(ct.device):
         err = fn(
@@ -75,15 +99,15 @@ def _launch(ct: torch.Tensor, gid: torch.Tensor, n: int, out: torch.Tensor) -> t
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error {err}")
     segment_sum_cuda.launches += 1
-    return out
 
 
 def segment_sum_cuda(ct: torch.Tensor, gid: torch.Tensor, n: int) -> torch.Tensor:
     """Launch the Hopper segment-sum kernel on the current stream. ``gid``
     must be ascending (each block finds its columns by searching the
     sorted ids). The kernel writes every output element, so the output is
-    allocated uninitialized. ``segment_sum_cuda.launches`` counts
-    successful launches."""
+    allocated uninitialized. Any row count >= 1: MAX_ROWS rows per launch.
+    ``segment_sum_cuda.launches`` counts successful launches, one per row
+    block."""
     _check(ct, gid, n)
     out = torch.empty((ct.shape[0], n), dtype=torch.float32, device=ct.device)
     return _launch(ct, gid, n, out)

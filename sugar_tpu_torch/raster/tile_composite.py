@@ -9,6 +9,18 @@ hand-written Hopper kernels ``csrc/tile_composite.cu`` (forward, K1) and
 tensor there is no fallback: the kernel is built and launched, or the call
 raises.
 
+The kernels are instantiated for 1..MAX_CH colour channels. A wider input
+(the Pallas kernels take any channel count) is composited in channel
+groups of at most MAX_CH, one launch per group (``channel_groups``): the
+compositing weights do not depend on the colour rows, so each group's
+image channels are the numbers one wide launch would give, and its
+final_T, n_contrib, entry_p and nch are the same in every group. The
+backward is linear in the image and final_T cotangents and gates only on
+forward values, so each group gets its own channels' cotangent (the
+final_T cotangent goes to the first group alone), the groups' mean2d,
+conic and opacity rows are summed and their colour rows placed side by
+side.
+
 Both kernels and both plain versions split the work the same way: the
 unit is a (tile, chunk) pair, listed tile-major by ``work_items``. A
 chunk's include decisions depend on earlier chunks only through the
@@ -36,7 +48,7 @@ from sugar_tpu_torch.raster.dup_gather import round8
 
 C_CHUNK = 256  # dup slots per chunk
 P_TILE = rc.TILE_X * rc.TILE_Y  # pixels per tile
-MAX_CH = 4  # color channels the CUDA kernel is instantiated for
+MAX_CH = 4  # colour channels per kernel launch; wider inputs go in groups
 # Pairs per step of the plain versions: one (128, 256, 256) float32
 # intermediate is 32 MiB, so a full-width frame stays well under 1 GiB.
 _TILE_BATCH = 128
@@ -383,8 +395,8 @@ def _check_inputs(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks):
         raise ValueError("tile_start and tile_count differ in shape")
     if dup_data.dtype != torch.float32 or dup_data.dim() != 2 or not dup_data.is_contiguous():
         raise ValueError("dup_data must be a contiguous 2-D float32 tensor")
-    if not 1 <= ch <= MAX_CH:
-        raise ValueError(f"the kernel takes 1..{MAX_CH} color channels, got {ch}")
+    if ch < 1:
+        raise ValueError(f"the kernel takes 1 or more color channels, got {ch}")
     if dup_data.shape[0] < R_COL + ch:
         raise ValueError(f"dup_data has {dup_data.shape[0]} rows, needs {R_COL + ch}")
     if tiles_x < 1 or tile_start.shape[0] % tiles_x:
@@ -393,21 +405,61 @@ def _check_inputs(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks):
         raise ValueError("max_chunks must be >= 1")
 
 
-def tile_composite_cuda(
-    tile_start: torch.Tensor,
-    tile_count: torch.Tensor,
-    dup_data: torch.Tensor,
-    tiles_x: int,
-    ch: int,
-    max_chunks: int,
-) -> CompositeOut:
-    """Launch the Hopper compositing kernels on the current stream.
+def channel_groups(ch: int) -> list[tuple[int, int]]:
+    """The colour channels [c0, c1) of each kernel launch for ``ch``
+    channels: MAX_CH at a time, the last group the remainder."""
+    return [(c0, min(ch, c0 + MAX_CH)) for c0 in range(0, ch, MAX_CH)]
 
-    Raises on inputs the kernel does not take and when a launch fails.
-    ``tile_composite_cuda.launches`` counts successful calls (each call
-    launches the four sub-kernels of csrc/tile_composite.cu).
-    """
-    _check_inputs(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
+
+def group_rows(dup_data: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
+    """One channel group's kernel input: rows 0:6 and colour rows c0:c1 of
+    the packed ``dup_data``, as a contiguous (6 + c1 - c0, D_pad) copy."""
+    return torch.cat([dup_data[:R_COL], dup_data[R_COL + c0 : R_COL + c1]])
+
+
+def composite_groups(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks) -> CompositeOut:
+    """K1 over ``ch`` channels through ``_launch_fwd``: one launch of the
+    whole input when ch <= MAX_CH, else one per channel group, whose
+    images are concatenated; final_T, n_contrib, entry_p and nch are the
+    first group's (every group computes the same ones)."""
+    groups = channel_groups(ch)
+    if len(groups) == 1:
+        return _launch_fwd(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
+    first, imgs = None, []
+    for c0, c1 in groups:
+        out = _launch_fwd(tile_start, tile_count, group_rows(dup_data, c0, c1), tiles_x, c1 - c0,
+                          max_chunks)
+        first = out if first is None else first
+        imgs.append(out.img)
+    return first._replace(img=torch.cat(imgs, dim=2))
+
+
+def composite_bwd_groups(tile_start, tile_count, nch, dup_data, g_img, gt_total, t_fin, entry_p,
+                         tiles_x, ch, max_chunks) -> torch.Tensor:
+    """K2 over ``ch`` channels through ``_launch_bwd``: one launch when ch
+    <= MAX_CH, else one per channel group with that group's image
+    cotangent and the final_T cotangent in the first group only; the
+    groups' rows 0:6 are summed, each group's colour rows placed at its
+    channels. Each group writes an output of its own: K2 overwrites the
+    rows of every slot a tile owns."""
+    groups = channel_groups(ch)
+    if len(groups) == 1:
+        return _launch_bwd(tile_start, tile_count, nch, dup_data, g_img, gt_total, t_fin,
+                           entry_p, tiles_x, ch, max_chunks)
+    d_packed = torch.zeros_like(dup_data)
+    no_gt = torch.zeros_like(gt_total)
+    for i, (c0, c1) in enumerate(groups):
+        d = _launch_bwd(tile_start, tile_count, nch, group_rows(dup_data, c0, c1),
+                        g_img[:, :, c0:c1].contiguous(), gt_total if i == 0 else no_gt, t_fin,
+                        entry_p, tiles_x, c1 - c0, max_chunks)
+        d_packed[:R_COL] += d[:R_COL]
+        d_packed[R_COL + c0 : R_COL + c1] = d[R_COL:]
+    return d_packed
+
+
+def _launch_fwd(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks) -> CompositeOut:
+    """One launch of csrc/tile_composite.cu (its four sub-kernels) on
+    checked inputs with ch <= MAX_CH; counts it."""
     fn = _kernel_lib()
     dev = dup_data.device
     num_tiles = tile_start.shape[0]
@@ -431,6 +483,27 @@ def tile_composite_cuda(
         raise RuntimeError(f"tile_composite kernel launch failed: CUDA error {err}")
     tile_composite_cuda.launches += 1
     return CompositeOut(img, final_t, n_contrib, entry_p, nch)
+
+
+def tile_composite_cuda(
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    dup_data: torch.Tensor,
+    tiles_x: int,
+    ch: int,
+    max_chunks: int,
+) -> CompositeOut:
+    """Launch the Hopper compositing kernels on the current stream, for any
+    ``ch`` >= 1 (``composite_groups``: one launch up to MAX_CH channels,
+    one per channel group above).
+
+    Raises on inputs the kernel does not take and when a launch fails.
+    ``tile_composite_cuda.launches`` counts successful launches, one per
+    channel group (each launches the four sub-kernels of
+    csrc/tile_composite.cu).
+    """
+    _check_inputs(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
+    return composite_groups(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
 
 
 tile_composite_cuda.launches = 0
@@ -463,10 +536,11 @@ def tile_composite_bwd_cuda(
     max_chunks: int,
 ) -> torch.Tensor:
     """Launch the Hopper compositing-backward kernels on the current
-    stream; returns d_packed (ROWS, D_pad). Raises on inputs the kernel
-    does not take and when a launch fails. ``tile_composite_bwd_cuda.
-    launches`` counts successful calls (each launches the three sub-kernels
-    of csrc/tile_composite_bwd.cu)."""
+    stream, for any ``ch`` >= 1 (``composite_bwd_groups``); returns
+    d_packed (ROWS, D_pad). Raises on inputs the kernel does not take and
+    when a launch fails. ``tile_composite_bwd_cuda.launches`` counts
+    successful launches, one per channel group (each launches the three
+    sub-kernels of csrc/tile_composite_bwd.cu)."""
     _check_inputs(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
     num_tiles = tile_start.shape[0]
     expect = {
@@ -485,15 +559,24 @@ def tile_composite_bwd_cuda(
             or tuple(entry_p.shape) != (num_tiles, rec, P_TILE) or rec < max_chunks + 1
             or not entry_p.is_contiguous()):
         raise ValueError("entry_p must be a contiguous float32 (T, >= max_chunks+1, 256) tensor")
+    return composite_bwd_groups(tile_start, tile_count, nch, dup_data, g_img, gt_total, t_fin,
+                                entry_p, tiles_x, ch, max_chunks)
+
+
+def _launch_bwd(tile_start, tile_count, nch, dup_data, g_img, gt_total, t_fin, entry_p, tiles_x,
+                ch, max_chunks) -> torch.Tensor:
+    """One launch of csrc/tile_composite_bwd.cu (its three sub-kernels) on
+    checked inputs with ch <= MAX_CH; counts it."""
     fn = _bwd_fn()
     dev = dup_data.device
+    num_tiles = tile_start.shape[0]
     cap = pair_capacity(num_tiles, dup_data.shape[1], max_chunks)
     d_packed = torch.zeros_like(dup_data)
     scratch = bwd_scratch(num_tiles, cap, dev)
     with torch.cuda.device(dev):
         err = fn(
             tile_start.data_ptr(), tile_count.data_ptr(), nch.data_ptr(), dup_data.data_ptr(),
-            dup_data.shape[1], num_tiles, tiles_x, ch, max_chunks, rec, cap,
+            dup_data.shape[1], num_tiles, tiles_x, ch, max_chunks, entry_p.shape[1], cap,
             g_img.data_ptr(), gt_total.data_ptr(), t_fin.data_ptr(), entry_p.data_ptr(),
             d_packed.data_ptr(), *(x.data_ptr() for x in scratch.values()),
             torch.cuda.current_stream(dev).cuda_stream,
