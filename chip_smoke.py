@@ -66,14 +66,14 @@ together), then:
 10. coarse mesh extraction: the level set of one camera of a small scene
    on the card against the CPU; ``extract_mesh_from_coarse_model`` with
    ``ExtractConfig``'s defaults on the pruned model that 9 ends with, over
-   the 8 ring cameras at 512x512: per camera the device ms of the depth
-   render (one K1 launch), KNN, field query, gradient and the rest, the
-   valid pixels and the depth render's overflow counters (the reference's
-   fixed caps drop splats; the worst camera is run again at a k_max that
-   covers its deepest tile), K1 against its plain version on the
-   arguments the worst camera's depth render gave it at the fixed caps,
-   the host ms of each meshing step, the mesh PLY loaded back, and QEM
-   decimation of the mesh to a fifth;
+   every other ring camera (4) at 512x512: per camera the device ms of the
+   depth render (one K1 launch), KNN, field query, gradient and the rest,
+   the valid pixels and the depth render's overflow counters (the
+   reference's fixed caps drop splats; the worst camera is run again at a
+   k_max that covers its deepest tile), K1 against its plain version on
+   the arguments the worst camera's depth render gave it at the fixed
+   caps, the host ms of each meshing step, the mesh PLY loaded back, and
+   QEM decimation of the mesh to a fifth;
 11. refinement: one refine step's vertex gradient on a small mesh, card
    against CPU; ``refined_training`` with ``RefineConfig``'s defaults on
    the mesh of 10 against the ring images of 7 for 20 iterations (K1, K2,
@@ -153,13 +153,28 @@ together), then:
    rows, K1, K2 and K3 held to their plain versions on the recorded
    arguments, the groups' final_T, n_contrib, entry_p and nch bit-equal,
    the C = 8 render's first three channels, final_T and n_contrib against
-   the C = 3 render's, and each kernel's ms and bound at each C; (b) the
-   bench-scale section of ``scripts.scaling_report`` (the tile-sharded and
-   coarse 'sdf' steps at capacity 2^20) at 2 ranks sharing the card, its
-   table rows and the peak GB per rank;
+   the C = 3 render's, and each kernel's ms, bound and plain version's ms
+   at each C, and ``index_add_`` of K3's rows; (b) the bench-scale section
+   of ``scripts.scaling_report`` (the tile-sharded and coarse 'sdf' steps
+   at capacity 2^20) at 2 ranks sharing the card, its table rows and the
+   peak GB per rank;
+18. the pipeline as a user runs it, at width: 7's 2^18 scene written as a
+   COLMAP text scene (9 ring views at 512x512 through io/colmap's writers
+   and io/png), then ``run_full_pipeline`` with the config
+   ``train_full_pipeline`` builds (high_poly, sdf, long, eval split) and
+   only iteration counts added (vanilla 200, coarse 8500-9010 across the
+   entropy phase's last 500 steps, the prune and 9's SDF steps, refine 20),
+   with the plain K1-K3 made to raise: per stage the wall, launches, peak
+   GB and the time of its file hand-offs, K1-K3 held to their plain
+   versions on its last launches, the level set's and the bake's overflow
+   counters at their fixed caps; every artifact loaded back and the
+   refined state rendered at a held-out view; ``train_refined``,
+   ``extract_refined_mesh_with_texture`` and ``metrics`` on the artifacts
+   (launches, kernels checked, the texture equal to the pipeline's); a
+   second run that skips every stage;
    then prints the kernels line (launches summed over 7, 10, 11, 12, 13,
-   14, 15, 16 and 17), the card line, and last ``{"ok": true, "device":
-   {...}}`` — only when every check passed.
+   14, 15, 16, 17 and 18), the card line, and last ``{"ok": true,
+   "device": {...}}`` — only when every check passed.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. It exits non-zero, printing no result, without a CUDA card.
@@ -170,6 +185,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -186,6 +202,7 @@ import torch
 import torch.distributed as dist
 
 from sugar_tpu_torch import native
+from sugar_tpu_torch import pipeline as pipeline_mod
 from sugar_tpu_torch.core.cameras import make_camera
 from sugar_tpu_torch.core.quaternions import normalize as quat_normalize
 from sugar_tpu_torch.core.sh import C0, sh0_to_rgb, sh_to_rgb
@@ -195,6 +212,8 @@ from sugar_tpu_torch.fields.knn import knn
 from sugar_tpu_torch.eval.metrics import _VGG_CFG, evaluate_renders, make_lpips
 from sugar_tpu_torch.eval.parity import eval_gaussian_ply, make_parity_scene
 from sugar_tpu_torch.interop import model_from_numpy, params_from_numpy
+from sugar_tpu_torch.io import colmap as colmap_io
+from sugar_tpu_torch.io import ply as ply_io
 from sugar_tpu_torch.io.datasets import nerfpp_extent
 from sugar_tpu_torch.io.obj import load_obj
 from sugar_tpu_torch.io.ply import load_mesh_ply
@@ -203,6 +222,7 @@ from sugar_tpu_torch.meshing import levelset, meshops, poisson
 from sugar_tpu_torch.meshing.extract import ExtractConfig, extract_mesh_from_coarse_model
 from sugar_tpu_torch.models.compositor import GaussianSet, composite_render
 from sugar_tpu_torch.models.densifier import DensifyStats, prune_low_opacity, update_stats
+from sugar_tpu_torch.models import gaussians as gm_mod
 from sugar_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianParams, load_ply, save_ply
 from sugar_tpu_torch.models.render import render_model, render_params
 from sugar_tpu_torch.pipeline import (
@@ -252,6 +272,8 @@ from sugar_tpu_torch.raster.tile_composite import (
 )
 from sugar_tpu_torch.refine import bound as refine_bound
 from sugar_tpu_torch.refine.bound import BOUND_FIELDS, init_bound_params, normal_consistency_pairs
+from sugar_tpu_torch.refine import extract_textured as extract_textured_mod
+from sugar_tpu_torch.refine import texture as texture_mod
 from sugar_tpu_torch.refine.extract_textured import TextureConfig, extract_textured_mesh
 from sugar_tpu_torch.refine.mesh_raster import rasterize_mesh
 from sugar_tpu_torch.refine.texture import bake_texture, build_uv_atlas, render_textured_mesh
@@ -271,14 +293,18 @@ from sugar_tpu_torch.scripts import (
     bench,
     compose_animation,
     demo_hybrid,
+    extract_refined_mesh_with_texture,
     microbench_gather,
     microbench_prims,
     microbench_sort,
     profile_raster,
     profile_trained,
     scaling_report,
+    train_full_pipeline,
+    train_refined,
     train_vanilla_gs,
 )
+from sugar_tpu_torch.scripts import metrics as metrics_script
 from sugar_tpu_torch.scripts import render as render_script
 from sugar_tpu_torch.trainers import coarse as coarse_mod
 from sugar_tpu_torch.trainers import optimizer as opt
@@ -401,20 +427,26 @@ def scene_params(n: int, seed: int, sh_degree: int) -> dict[str, np.ndarray]:
     )
 
 
-def ring_cameras(views: int, device) -> list:
-    """Cameras on a ring around the blob's center (0, 0, 3.2), radius 3.2,
-    looking at it; view 0 is bench.py's camera at the origin."""
+def ring_poses(views: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """(R, T) of cameras on a ring around the blob's center (0, 0, 3.2),
+    radius 3.2, looking at it: R the cam-to-world rotation, T the
+    world-to-cam translation (make_camera's convention); view 0 is bench.py's
+    camera at the origin."""
     center = np.array([0.0, 0.0, 3.2])
-    cams = []
+    poses = []
     for i in range(views):
         th = 2.0 * math.pi * i / views
         R = np.array(  # cam-to-world rotation about the world y axis
             [[math.cos(th), 0.0, math.sin(th)], [0.0, 1.0, 0.0], [-math.sin(th), 0.0, math.cos(th)]]
         )
         cam_pos = center - R @ np.array([0.0, 0.0, 3.2])
-        T = -R.T @ cam_pos
-        cams.append(make_camera(R, T, FOV, FOV, H, W, device=device))
-    return cams
+        poses.append((R, -R.T @ cam_pos))
+    return poses
+
+
+def ring_cameras(views: int, device, size: int = H) -> list:
+    """The ring's cameras at size x size pixels and FOV."""
+    return [make_camera(R, T, FOV, FOV, size, size, device=device) for R, T in ring_poses(views)]
 
 
 # --- a small synthetic compositing case ---------------------------------
@@ -946,6 +978,96 @@ def check_recorded(check, recs: dict, tag: str, label: str) -> dict:
                          tol_scale=float(ct.abs().max()), tag=tag)
             errs["K3"] = max(errs.get("K3", 0.0), e)
     return errs
+
+
+@contextlib.contextmanager
+def swapped(mod, name: str, new):
+    """``mod.name`` is ``new`` inside the block."""
+    orig = getattr(mod, name)
+    setattr(mod, name, new)
+    try:
+        yield orig
+    finally:
+        setattr(mod, name, orig)
+
+
+def timed_run(check, tag: str, label: str, fn, keep: int = 1, guard=contextlib.nullcontext):
+    """fn() inside ``guard()``, timed, with its launches counted, its peak
+    GB (torch.cuda.max_memory_allocated, reset at its start) and the last
+    ``keep`` launches of each kernel held to their plain versions. Returns
+    (fn's result, dict of wall_s, launches, peak_gb, start_gb (allocated at
+    its start), recorded (launches recorded per kernel) and errs (max abs
+    error per kernel), the recorded launches' arguments)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    with recorded_kernel_args(keep_last=keep) as recs, guard():
+        r = fn()
+        torch.cuda.synchronize()
+    st = dict(wall_s=time.perf_counter() - t0, launches=launches(),
+              peak_gb=torch.cuda.max_memory_allocated() / 1e9, start_gb=start_gb,
+              recorded=tuple(len(recs[k]) for k in ("K1", "K2", "K3")))
+    st["errs"] = check_recorded(check, recs, tag, f"{label}, last launches")
+    return r, st, recs
+
+
+def timed_entry(check, tag: str, name: str, fn, want, guard=contextlib.nullcontext):
+    """timed_run of an entry point: ``want`` is the expected (K1, K2, K3)
+    launches, or None for K1 launched and no K2 or K3. Returns (fn's
+    result, wall s, launches, max abs error per kernel)."""
+    r, st, _ = timed_run(check, tag, name, fn, guard=guard)
+    got = st["launches"]
+    ok = got == want if want is not None else got[0] > 0 and got[1:] == (0, 0)
+    check(ok, f"{name}: launches (K1, K2, K3) {want or '(> 0, 0, 0)'} (got {got})")
+    return r, st["wall_s"], got, st["errs"]
+
+
+PIPE_STAGES = ("vanilla", "coarse", "extract_mesh", "refine", "texture")
+
+
+def timed_stage(check, tag: str, name: str, fn) -> tuple:
+    """timed_run of one pipeline stage: the last training step of vanilla,
+    coarse and refine is checked (for coarse, an SDF-phase step's two
+    renders: the image and the depth map of one camera, the same tiles,
+    other colours), the last camera of the extraction's level set and of
+    the bake. Returns (fn's result, timed_run's dict)."""
+    trains = name in ("vanilla", "coarse", "refine")
+    keep = 2 if name == "coarse" else 1
+    r, st, recs = timed_run(check, tag, f"{name} stage", fn, keep=keep)
+    want = (keep,) * 3 if trains else (1, 0, 0)
+    check(st["recorded"] == want, f"{tag} {name}: {want} launches of K1, K2, K3 recorded for the "
+          f"kernel check (got {st['recorded']})")
+    if name == "coarse" and st["recorded"][0] == 2:
+        (s0, c0, d0, *_), (s1, c1, d1, *_) = recs["K1"]
+        check(torch.equal(s0, s1) and torch.equal(c0, c1) and not torch.equal(d0, d1),
+              f"{tag} coarse: the last step renders twice over the same tiles (image and depth)")
+    return r, st
+
+
+def load_artifacts(art: dict, dev) -> dict:
+    """Every artifact of a pipeline run loaded back: the vanilla, coarse and
+    refined PLYs (load_ply), the mesh (load_mesh_ply), the refined state
+    (load_refined_state), the textured OBJ (load_obj) and its PNG."""
+    return dict(
+        vanilla=load_ply(art["vanilla"], device=dev), coarse=load_ply(art["coarse"], device=dev),
+        mesh=load_mesh_ply(art["mesh"]), refined=load_ply(art["refined"], device=dev),
+        state=load_refined_state(art["refined"].replace(".ply", "_state.pkl"), device=dev),
+        obj=load_obj(art["textured"]),
+        png=read_png(os.path.splitext(art["textured"])[0] + ".png"))
+
+
+def resumed_run(run) -> tuple[list, tuple, float]:
+    """``run(log_fn)`` again over a finished run's output: the stages it
+    logged as skipped, its launches and its wall s."""
+    logs: list = []
+    reset_launches()
+    t0 = time.perf_counter()
+    run(logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [json.loads(r)["stage"] for r in logs if '"stage_skip"' in r], launches(), wall
 
 
 # --- the phases ---------------------------------------------------------
@@ -2610,32 +2732,31 @@ def phase_pipeline(check, dev) -> dict:
     out_dir = os.path.join(WORK, "pipeline")
     shutil.rmtree(out_dir, ignore_errors=True)
     cfg = parity_config(out_dir)
-    walls, counts, recorded, logs = {}, {}, {}, []
+    walls, counts, errs, logs = {}, {}, {}, []
 
-    def stage(name, fn, *args, keep=1):
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with recorded_kernel_args(keep_last=keep) as recorded[name]:
-            r = fn(cfg, scene, *args, log_fn=logs.append)
-            torch.cuda.synchronize()
-        walls[name] = time.perf_counter() - t0
-        counts[name] = launches()
+    def stage(name, fn, *args):
+        r, st = timed_stage(check, "[13]", name,
+                            lambda: fn(cfg, scene, *args, log_fn=logs.append))
+        walls[name], counts[name] = st["wall_s"], st["launches"]
+        for k, e in st["errs"].items():
+            errs[k] = max(errs.get(k, 0.0), e)
         return r
 
     gs = stage("vanilla", run_vanilla)
-    coarse = stage("coarse", run_coarse, gs, keep=2)
+    coarse = stage("coarse", run_coarse, gs)
     mesh = stage("extract_mesh", run_extract_mesh, coarse)
     refined = stage("refine", run_refine, mesh)
     textured = stage("texture", run_texture, refined)
     total = tuple(sum(c[k] for c in counts.values()) for k in range(3))
+    art = dict(vanilla=gs, coarse=coarse, mesh=mesh, refined=refined, textured=textured)
 
     scores = {}
     for name, ply in (("vanilla", gs), ("coarse", coarse), ("refined", refined)):
         r = eval_gaussian_ply(ply, scene, test_idx, k_max=512)
         scores[name] = (r["psnr"], r["ssim"])
-    lv, lf, luv, lfuv = load_obj(textured)
-    png = read_png(os.path.splitext(textured)[0] + ".png")
+    back = load_artifacts(art, dev)
+    lv, lf, luv, lfuv = back["obj"]
+    png = back["png"]
     vt = luv[lfuv]
     verts_uv = np.stack([1.0 - vt[..., 1], vt[..., 0]], axis=-1)
     tex = png.astype(np.float32)[..., :3] / 255.0
@@ -2652,33 +2773,10 @@ def phase_pipeline(check, dev) -> dict:
           + f" (floors {PARITY_FLOORS}; JAX on a CPU, tests/test_parity.py:87-92: 17.00 / 19.10 / "
           f"16.94 dB)")
 
-    # The kernels against their plain versions on each stage's last
-    # launches: the last training step of vanilla, coarse (an SDF-phase
-    # step renders the image and the depth map of one camera: the same
-    # tiles, other colors) and refine, and the last camera of the
-    # extraction's level set and of the bake.
-    errs = {}
-    for name, recs in recorded.items():
-        n = 2 if name == "coarse" else 1
-        want = (n, n, n) if name in ("vanilla", "coarse", "refine") else (1, 0, 0)
-        got = tuple(len(recs[k]) for k in ("K1", "K2", "K3"))
-        check(got == want, f"pipeline {name}: {want} launches of K1, K2, K3 recorded for the kernel "
-              f"check (got {got})")
-        if name == "coarse" and got[0] == 2:
-            (s0, c0, d0, *_), (s1, c1, d1, *_) = recs["K1"]
-            check(torch.equal(s0, s1) and torch.equal(c0, c1) and not torch.equal(d0, d1),
-                  "pipeline coarse: the last step renders twice over the same tiles (image and "
-                  "depth)")
-        for k, e in check_recorded(check, recs, "[13]", f"{name} stage, last "
-                                   f"{'step' if want[1] else 'camera'}").items():
-            errs[k] = max(errs.get(k, 0.0), e)
-    recorded.clear()
-
     # Every artifact loaded back.
-    v_model, c_model = load_ply(gs, device=dev), load_ply(coarse, device=dev)
-    mv, mf, mc = load_mesh_ply(mesh)
-    r_model = load_ply(refined, device=dev)
-    sp, sbm = load_refined_state(refined.replace(".ply", "_state.pkl"), device=dev)
+    v_model, c_model, r_model = back["vanilla"], back["coarse"], back["refined"]
+    mv, mf, mc = back["mesh"]
+    sp, sbm = back["state"]
     radius = float(np.median(np.linalg.norm(mv, axis=1)))
     print(f"    artifacts: vanilla {int(v_model.alive.sum())} Gaussians, coarse "
           f"{int(c_model.alive.sum())}, mesh {len(mv)} vertices / {len(mf)} faces (median radius "
@@ -2687,14 +2785,14 @@ def phase_pipeline(check, dev) -> dict:
           f"{len(lv)} vertices / {len(lf)} faces, texture {png.shape}")
     # A resumed run skips every stage.
     rcfg = dataclasses.replace(cfg, resume=True)
-    rlogs: list = []
-    a = run_vanilla(rcfg, scene, log_fn=rlogs.append)
-    a = run_coarse(rcfg, scene, a, log_fn=rlogs.append)
-    a = run_extract_mesh(rcfg, scene, a, log_fn=rlogs.append)
-    a = run_refine(rcfg, scene, a, log_fn=rlogs.append)
-    run_texture(rcfg, scene, a, log_fn=rlogs.append)
-    skipped = [json.loads(r)["stage"] for r in rlogs if '"stage_skip"' in r]
-    print(f"    resumed run: stage_skip events {skipped}")
+
+    def again(log_fn):
+        a = run_vanilla(rcfg, scene, log_fn=log_fn)
+        for fn in (run_coarse, run_extract_mesh, run_refine, run_texture):
+            a = fn(rcfg, scene, a, log_fn=log_fn)
+
+    skipped, rcounts, _ = resumed_run(again)
+    print(f"    resumed run: stage_skip events {skipped}, launches (K1, K2, K3) {rcounts}")
 
     p = {k: v[0] for k, v in scores.items()}
     check(all(math.isfinite(v) for v in p.values()), "pipeline: every stage's PSNR finite")
@@ -2716,8 +2814,8 @@ def phase_pipeline(check, dev) -> dict:
           and len(lf) == len(mf) and int(v_model.alive.sum()) > 0
           and int(c_model.alive.sum()) > 0 and mc is not None,
           "pipeline: every artifact loads back (3 Gaussians per mesh triangle)")
-    check(skipped == ["vanilla", "coarse", "extract_mesh", "refine", "texture"],
-          "pipeline: a resumed run skips every stage")
+    check(skipped == list(PIPE_STAGES) and rcounts == (0, 0, 0),
+          "pipeline: a resumed run skips every stage and launches no kernel")
     return dict(walls=walls, counts=counts, launches=total, scores=scores, scene_s=scene_s,
                 errs=errs, scene=scene, artifacts=dict(vanilla=gs, coarse=coarse, refined=refined))
 
@@ -3143,21 +3241,11 @@ def phase_entry_points(check, dev, scene, artifacts) -> dict:
     walls, counts, errs = {}, {}, {}
 
     def entry(name, fn, want, refuse=False):
-        """fn() with its launches counted and the last launches' arguments
-        of each kernel held to the plain versions; ``want`` the expected
-        (K1, K2, K3) launches; inside no_fallback() when ``refuse``."""
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with recorded_kernel_args(keep_last=1) as recs, \
-                (no_fallback() if refuse else contextlib.nullcontext()):
-            r = fn()
-            torch.cuda.synchronize()
-        walls[name] = time.perf_counter() - t0
-        counts[name] = launches()
-        check(counts[name] == want, f"{name}: launches (K1, K2, K3) {want} (got {counts[name]})")
-        for k, e in check_recorded(check, recs, "[14]", f"{name}, last launches").items():
-            errs[k] = max(errs.get(k, 0.0), e)
+        """timed_entry, inside no_fallback() when ``refuse``."""
+        r, walls[name], counts[name], e = timed_entry(
+            check, "[14]", name, fn, want, no_fallback if refuse else contextlib.nullcontext)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
         return r
 
     out = os.path.join(root, "renders")
@@ -3994,14 +4082,28 @@ def phase_channels(check, dev, model, cam, caps, card) -> dict:
         live = int((k3[1] < k3[2]).sum())
         times = dict(
             K1=(cuda_ms(lambda: tile_composite_cuda(*fw), reps=10, warmup=1),
-                composite_bound(fw[0], fw[1], nch, ch, fw[5])),
+                composite_bound(fw[0], fw[1], nch, ch, fw[5]),
+                cuda_ms(lambda: tile_composite_plain(*fw), reps=2)),
             K2=(cuda_ms(lambda: tile_composite_bwd_cuda(*bw), reps=10, warmup=1),
-                composite_bwd_bound(fw[0], fw[1], nch, ch, fw[5], fw[2].shape[1])),
+                composite_bwd_bound(fw[0], fw[1], nch, ch, fw[5], fw[2].shape[1]),
+                cuda_ms(lambda: tile_composite_bwd_plain(*bw), reps=2)),
             K3=(cuda_ms(lambda: segment_sum_cuda(*k3), reps=20, warmup=1),
-                segsum_bound(6 + ch, live, k3[2])))
+                segsum_bound(6 + ch, live, k3[2]),
+                cuda_ms(lambda: segment_sum_plain(*k3), reps=5)))
+        # index_add_ on the same cotangent and ids ([8]'s library call), the
+        # faster of dim 1 of (rows, n+1) and dim 0 of (n+1, rows).
+        ct, ids = k3[0], torch.clamp(k3[1], max=k3[2]).to(torch.int64)
+        ct_t = ct.T.contiguous()
+        lib_ms = min(
+            cuda_ms(lambda: torch.zeros((6 + ch, k3[2] + 1), device=dev).index_add_(1, ids, ct),
+                    reps=5),
+            cuda_ms(lambda: torch.zeros((k3[2] + 1, 6 + ch), device=dev).index_add_(0, ids, ct_t),
+                    reps=5))
+        del ct, ids, ct_t
         print(f"[17] C = {ch} on {card}, view 0 (CUDA events, whole wrapper call): "
-              + "; ".join(f"{k} {ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}"
-                          for k, (ms, b) in times.items()))
+              + "; ".join(f"{k} {ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
+                          f"plain version {pms:.3f} ms" for k, (ms, b, pms) in times.items())
+              + f"; index_add_ of the {6 + ch} rows {lib_ms:.4f} ms")
         del recs, fw, bw, k3
     a, b = renders[3], renders[8]
     d = max(float((b["image"][..., :3] - a["image"]).abs().max()),
@@ -4039,6 +4141,365 @@ def phase_channels(check, dev, model, cam, caps, card) -> dict:
           + f"; kernels vs plain {json.dumps(errs)}; bench scale peak GB per rank "
           + ", ".join(f"{r['step']} {r['peak_gb']:.3f}" for r in rows))
     return dict(launches=total, errs=errs)
+
+
+# --- [18] the pipeline at width from a COLMAP scene on disk ---------------
+
+PIPE_VIEWS = 9  # every 8th held out: views 0 and 8, so 7 train cameras
+# Only iteration counts and cadence on top of the CLI's presets, through
+# the config's override fields: a vanilla run with [7]'s densify cadence
+# but 200 iterations and no opacity reset, a coarse window from
+# PIPE_COARSE_START across the prune at 9000 into [9]'s SDF phase, and
+# [11]'s refine iterations. The vanilla model starts at opacity 0.1
+# (create_from_pcd), and the coarse prune keeps opacity >= 0.5: after [7]'s
+# 30 iterations, which end in the reset to <= 0.01, no Gaussian is left,
+# and the coarse stage's PLY export of the empty model raises (in both
+# packages). After 200 iterations the opacities sit under 0.5 in layers;
+# the entropy phase (7000-9000) drives them to 0 or 1, and the prune keeps
+# what reaches 1. tools/torch_prune_window.py measured what the prune
+# keeps against the start on the H100: 8990 269, 8900 1,220, 8750 6,748,
+# 8500 8,123, 8000 8,294, 7000 (the whole phase) 8,291 of 262,145. From
+# 8500 the prune keeps 98% of what the whole phase keeps, in a quarter of
+# its steps.
+PIPE_VANILLA_ITERS = 200
+PIPE_COARSE_START = 8_500
+# Half of what the prune kept from 8500 in that measurement: a prune that
+# keeps fewer runs the later stages short of the surface.
+PIPE_MIN_KEPT = 4_000
+PIPE_WIDTH_ITERS = dict(
+    vanilla_iterations=PIPE_VANILLA_ITERS,
+    vanilla_overrides=dict(densify_from=20, densify_every=25, log_every=1),
+    coarse_overrides=dict(start_iteration=PIPE_COARSE_START, num_iterations=COARSE_END,
+                          log_every=10),
+    refine_overrides=dict(num_iterations=REFINE_ITERS, log_every=1),
+)
+ENTRY_REFINE_ITERS = 10
+# The Gaussian PLYs, the mesh PLY, the refined state and the OBJ: what one
+# stage writes and the next reads (pipeline.py and the modules it calls).
+HANDOFFS = ((gm_mod, "save_ply"), (gm_mod, "load_ply"), (ply_io, "save_mesh_ply"),
+            (ply_io, "load_mesh_ply"), (pipeline_mod, "export_refined_ply"),
+            (pipeline_mod, "save_refined_state"), (pipeline_mod, "load_refined_state"),
+            (extract_textured_mod, "save_obj"))
+
+
+def rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
+    """The unit quaternion (w, x, y, z), w >= 0, of a rotation matrix: the
+    inverse of io/colmap.qvec2rotmat (the largest component from the
+    diagonal, the others from the off-diagonal sums)."""
+    t = R[0, 0] + R[1, 1] + R[2, 2]
+    k = int(np.argmax([t, R[0, 0], R[1, 1], R[2, 2]]))
+    if k == 0:
+        s = 2.0 * math.sqrt(1.0 + t)
+        q = [s / 4, (R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s]
+    elif k == 1:
+        s = 2.0 * math.sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2])
+        q = [(R[2, 1] - R[1, 2]) / s, s / 4, (R[0, 1] + R[1, 0]) / s, (R[0, 2] + R[2, 0]) / s]
+    elif k == 2:
+        s = 2.0 * math.sqrt(1.0 + R[1, 1] - R[0, 0] - R[2, 2])
+        q = [(R[0, 2] - R[2, 0]) / s, (R[0, 1] + R[1, 0]) / s, s / 4, (R[1, 2] + R[2, 1]) / s]
+    else:
+        s = 2.0 * math.sqrt(1.0 + R[2, 2] - R[0, 0] - R[1, 1])
+        q = [(R[1, 0] - R[0, 1]) / s, (R[0, 2] + R[2, 0]) / s, (R[1, 2] + R[2, 1]) / s, s / 4]
+    q = np.array(q)
+    return q if q[0] >= 0 else -q
+
+
+def write_colmap_scene(root: str, fields: dict[str, np.ndarray], views: int, size: int,
+                       caps: adaptive.RasterCaps, device) -> tuple:
+    """A COLMAP text scene on disk, written by io/colmap's writers:
+    sparse/0/cameras.txt (one PINHOLE camera, fx = fy = size / 2 / tan(FOV
+    / 2)), images.txt (one image per view of the ring), points3D.txt (the
+    scene's means, their SH-DC colour as RGB), and images/view_NNN.png,
+    each the clamped render of the scene (``fields`` at SH degree 0) at that
+    view through render_adaptive from ``caps``. Returns the PNGs' pixels and
+    the written cameras, images and (points, colours)."""
+    n = fields["xyz"].shape[0]
+    model = model_from_numpy(fields, np.ones(n, bool), 0, device=device)
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    f = size / 2 / math.tan(FOV / 2)
+    cameras = {1: colmap_io.ColmapCamera(1, "PINHOLE", size, size,
+                                         np.array([f, f, size / 2, size / 2]))}
+    colmap_io.write_cameras_text(os.path.join(sparse, "cameras.txt"), cameras)
+    images, pixels = {}, []
+    for i, (R, T) in enumerate(ring_poses(views)):
+        name = f"view_{i:03d}.png"
+        cam = make_camera(R, T, FOV, FOV, size, size, device=device)
+        with torch.no_grad():
+            out, _ = adaptive.render_adaptive(render_model, caps, model, cam)
+        px = (torch.clamp(out["image"], 0.0, 1.0).cpu().numpy() * 255).astype(np.uint8)
+        write_png(os.path.join(root, "images", name), px)
+        pixels.append(px)
+        images[i + 1] = colmap_io.ColmapImage(i + 1, rotmat_to_qvec(R.T), T, 1, name)
+    colmap_io.write_images_text(os.path.join(sparse, "images.txt"), images)
+    rgb = np.round(np.clip(fields["sh_dc"] * C0 + 0.5, 0.0, 1.0) * 255).astype(np.uint8)
+    colmap_io.write_points3d_text(os.path.join(sparse, "points3D.txt"), fields["xyz"], rgb)
+    return pixels, cameras, images, (fields["xyz"], rgb)
+
+
+def cli_config(argv: list[str]) -> PipelineConfig:
+    """The PipelineConfig that ``train_full_pipeline.main(argv)`` builds (the
+    CLI's presets), taken where it would start the pipeline."""
+    seen = {}
+
+    def capture(cfg, device):
+        seen["cfg"] = cfg
+        return {}
+
+    with swapped(train_full_pipeline, "run_full_pipeline", capture), \
+            contextlib.redirect_stdout(io.StringIO()):
+        train_full_pipeline.main(argv)
+    return seen["cfg"]
+
+
+def phase_pipeline_width(check, dev, card) -> dict:
+    """[18] the pipeline as train_full_pipeline builds it (high_poly, sdf,
+    long, eval split) from a COLMAP text scene on disk at the main path's
+    width: [7]'s 2^18 scene seen by 9 ring views at 512x512. Each stage
+    timed, its launches, peak GB and file hand-offs; K1-K3 held to their
+    plain versions on each stage's last launches; every artifact loaded
+    back; the stage entry points on the artifacts; a resumed run that
+    skips every stage. The plain K1-K3 raise throughout."""
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "colmap")
+    scene_dir, out_dir = os.path.join(root, "scene"), os.path.join(root, "out")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    pixels, *_ = write_colmap_scene(scene_dir, train_scene_fields(TRAIN_N, TRAIN_SEED),
+                                    PIPE_VIEWS, H, TRAIN_CAPS, dev)
+    write_s = time.perf_counter() - t0
+    scene_mb = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(scene_dir) for f in fs) / 1e6
+    cfg = dataclasses.replace(cli_config(["-s", scene_dir, "-o", out_dir]), **PIPE_WIDTH_ITERS)
+    print(f"[18] COLMAP text scene written: {TRAIN_N} points, {PIPE_VIEWS} views at {H}x{W} "
+          f"(PINHOLE, FOV {FOV}), {scene_mb:.1f} MB, {write_s:.2f} s; the CLI's config: poly "
+          f"{cfg.poly} ({cfg.n_vertices_in_mesh} vertices, {cfg.gaussians_per_triangle} per "
+          f"triangle), regularization {cfg.regularization}, refinement {cfg.refinement_time}, "
+          f"eval split {cfg.eval_split}, capacity {cfg.capacity}; iterations {PIPE_WIDTH_ITERS}")
+
+    # Each stage: wall, launches, peak GB, the last launches' arguments; the
+    # scene load and the hand-offs by the host clock; the level set's and
+    # the bake's counters.
+    ct = CallTimes()
+    stages: dict[str, dict] = {}
+    logs: list[tuple] = []
+    seen: dict = {"levelset": [], "bake": [], "raster": []}
+
+    def staged(name, run):
+        def stage(*args, **kwargs):
+            ct.tag = name
+            r, stages[name] = timed_stage(check, "[18]", name, lambda: run(*args, **kwargs))
+            ct.tag = None
+            return r
+        return stage
+
+    def load_scene_kept(*args, **kwargs):
+        t0 = time.perf_counter()
+        seen["scene"] = load_scene_orig(*args, **kwargs)
+        seen["load_s"] = time.perf_counter() - t0
+        return seen["scene"]
+
+    def collect_kept(*args, **kwargs):
+        out = collect_orig(*args, **kwargs)
+        seen["levelset"].extend(out["overflow"])
+        return out
+
+    def render_bound_kept(*args, **kwargs):
+        out = render_bound_orig(*args, **kwargs)
+        seen["bake"].append(adaptive.read_overflow(out))
+        return out
+
+    def rasterize_mesh_kept(*args, **kwargs):
+        out = rasterize_orig(*args, **kwargs)
+        seen["raster"].append((int(out["overflow"]), int(out["tile_count_max"])))
+        return out
+
+    for mod, name in HANDOFFS:
+        ct.wrap(mod, name, name, device=False)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.ExitStack() as stack:
+            load_scene_orig = stack.enter_context(swapped(pipeline_mod, "load_scene",
+                                                          load_scene_kept))
+            collect_orig = stack.enter_context(swapped(levelset, "collect_surface_points",
+                                                       collect_kept))
+            render_bound_orig = stack.enter_context(swapped(extract_textured_mod, "render_bound",
+                                                            render_bound_kept))
+            rasterize_orig = stack.enter_context(swapped(texture_mod, "rasterize_mesh",
+                                                         rasterize_mesh_kept))
+            for s in PIPE_STAGES:
+                stack.enter_context(swapped(pipeline_mod, f"run_{s}",
+                                            staged(s, getattr(pipeline_mod, f"run_{s}"))))
+            stack.enter_context(no_fallback(refuse_fused=False))
+            art = pipeline_mod.run_full_pipeline(
+                cfg, log_fn=lambda r: logs.append((ct.tag, json.loads(r))), device=dev)
+    finally:
+        ct.restore()
+    pipe_s = time.perf_counter() - t0
+    tot = ct.totals()
+    scene, load_s = seen["scene"], seen["load_s"]
+
+    train_idx, test_idx = scene.split(cfg.eval_split)
+    same_px = all(np.array_equal(np.round(img * 255).astype(np.uint8), px)
+                  for img, px in zip(scene.images, pixels))
+    print(f"[18] scene loaded by the pipeline (load_colmap_scene, Pillow): {len(scene.cameras)} "
+          f"cameras at {scene.cameras[0].height}x{scene.cameras[0].width}, {len(scene.points)} "
+          f"points, extent {scene.extent:.4f}, train {train_idx}, held out {test_idx}; "
+          f"{load_s:.2f} s; images equal the written PNGs {same_px}")
+    check(len(scene.cameras) == PIPE_VIEWS and scene.images[0].shape == (H, W, 3) and same_px
+          and len(scene.points) == TRAIN_N and test_idx == [0, PIPE_VIEWS - 1]
+          and len(train_idx) == PIPE_VIEWS - 2,
+          f"[18] the COLMAP scene loads whole: {PIPE_VIEWS} views at {H}x{W}, {TRAIN_N} points, "
+          f"views 0 and 8 held out")
+    want = {"vanilla": (PIPE_VANILLA_ITERS,) * 3,
+            "coarse": (COARSE_END - PIPE_COARSE_START + COARSE_END - COARSE_MILESTONE,) * 3,
+            "extract_mesh": (len(train_idx), 0, 0), "refine": (REFINE_ITERS,) * 3,
+            "texture": (len(train_idx), 0, 0)}
+    errs: dict[str, float] = {}
+    for name in PIPE_STAGES:
+        st = stages[name]
+        hand = {label: sum(v) for (label, tag), v in tot.items() if tag == name}
+        st["handoff_s"] = sum(hand.values()) / 1e3
+        steps = [r for tag, r in logs if tag == name and "loss" in r]
+        events = collections.Counter(r.get("event") for tag, r in logs
+                                     if tag == name and r.get("event"))
+        print(f"[18] {name}: {st['wall_s']:.2f} s wall, launches (K1, K2, K3) {st['launches']}, "
+              f"peak {st['peak_gb']:.3f} GB (allocated at its start {st['start_gb']:.3f}), "
+              f"hand-off {st['handoff_s']:.3f} s ("
+              + ", ".join(f"{k} {v / 1e3:.3f} s" for k, v in hand.items()) + ")"
+              + (f"; loss {steps[0]['loss']:.5f} -> {steps[-1]['loss']:.5f} over {len(steps)} "
+                 f"logged iterations" if steps else "")
+              + (f", n_alive {steps[0]['n_alive']} -> {steps[-1]['n_alive']}"
+                 if steps and "n_alive" in steps[0] else "")
+              + (f"; events {dict(events)}" if events else ""))
+        for r in (r for tag, r in logs if tag == name and r.get("event") == "cap_grow"):
+            print(f"    {json.dumps(r)}")
+        check(st["launches"] == want[name], f"[18] {name}: launches (K1, K2, K3) {want[name]}")
+        check(all(math.isfinite(r["loss"]) for r in steps), f"[18] {name}: every loss finite")
+        for k, v in st["errs"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    # The level set's and the bake's counters at their fixed caps (faults
+    # of the reference, kept; ROADMAP queue 3).
+    ecfg = ExtractConfig()
+    for i, o in enumerate(seen["levelset"]):
+        print(f"[18] level set, train camera {i}: depth-render counters {json.dumps(o)} (fixed caps "
+              f"dup_capacity {ecfg.dup_capacity}, k_max {ecfg.k_max})")
+    for i, (o, (rov, deep)) in enumerate(zip(seen["bake"], seen["raster"])):
+        print(f"[18] bake, train camera {i}: render_bound counters {json.dumps(o)}; "
+              f"rasterize_mesh overflow {rov}, deepest tile {deep} faces against k_max "
+              f"{BAKE_RASTER_K_MAX}")
+    check(len(seen["levelset"]) == len(train_idx) and len(seen["bake"]) == len(train_idx),
+          "[18] the level set and the bake each render every train camera once")
+
+    # Every artifact loaded back.
+    names = {k: os.path.relpath(v, out_dir) for k, v in art.items()}
+    back = load_artifacts(art, dev)
+    v_model, c_model, r_model = back["vanilla"], back["coarse"], back["refined"]
+    mv, mf, mc = back["mesh"]
+    sp, sbm = back["state"]
+    lv, lf, _, _ = back["obj"]
+    png = back["png"]
+    state = art["refined"].replace(".ply", "_state.pkl")
+    sh = int(round(math.sqrt(sp.sh_rest.shape[-1] + 1))) - 1
+    bg = torch.zeros(3, device=dev)
+    with no_fallback(refuse_fused=False):
+        out0, _ = adaptive.render_adaptive(
+            functools.partial(render_bound, active_sh_degree=sh, bg=bg),
+            adaptive.RasterCaps(tile_cap=16, dup_capacity=BAKE_DUP_CAPACITY, k_max=BAKE_K_MAX),
+            sp, sbm, scene.cameras[0])
+    img0 = out0["image"]
+    db0 = float(psnr(torch.clamp(img0, 0, 1), torch.as_tensor(scene.images[0], device=dev)))
+    print(f"[18] artifacts {json.dumps(names)}: vanilla {int(v_model.alive.sum())} Gaussians "
+          f"(capacity {v_model.capacity}), coarse {int(c_model.alive.sum())}, mesh {len(mv)} "
+          f"vertices / {len(mf)} faces, refined {int(r_model.alive.sum())} Gaussians, state "
+          f"{int(sp.opacity_logit.shape[0])} ({sbm.n_per_triangle} per triangle, SH {sh}), "
+          f"textured OBJ {len(lv)} vertices / {len(lf)} faces, texture {png.shape}; held-out view "
+          f"0 from the refined state: PSNR {db0:.3f} dB, counters "
+          f"{json.dumps(adaptive.read_overflow(out0))}")
+    # What the coarse prune (opacity >= 0.5 at 9000) finds in the vanilla
+    # model.
+    op = torch.sigmoid(v_model.params.opacity_logit[v_model.alive])
+    q = torch.quantile(op, torch.tensor([0.5, 0.9, 0.99], device=dev)).tolist()
+    print(f"[18] vanilla PLY opacities: median {q[0]:.4f}, p90 {q[1]:.4f}, p99 {q[2]:.4f}, max "
+          f"{float(op.max()):.4f}; {int((op >= 0.5).sum())} of {op.numel()} at >= 0.5")
+    check(names["mesh"] == os.path.join("coarse_mesh", "mesh_level0.3_decim1000000.ply")
+          and names["refined"] == os.path.join("refined", "refined_1gpt_15000.ply"),
+          "[18] the artifacts carry the high_poly / long presets' names")
+    check(0 < len(mv) <= cfg.n_vertices_in_mesh and len(mf) > 0 and mc is not None,
+          f"[18] the mesh loads back with colours, at most {cfg.n_vertices_in_mesh} vertices")
+    check(int(v_model.alive.sum()) > 0 and 0 < int(c_model.alive.sum()) <= int(v_model.alive.sum())
+          and int(r_model.alive.sum()) == len(mf) == int(sp.opacity_logit.shape[0])
+          and sbm.n_per_triangle == 1 and len(lf) == len(mf) and png.ndim == 3,
+          "[18] every artifact loads back (1 Gaussian per mesh triangle)")
+    check(tuple(img0.shape) == (H, W, 3) and bool(torch.isfinite(img0).all()),
+          "[18] the refined state renders held-out view 0, finite")
+    check(int(c_model.alive.sum()) >= PIPE_MIN_KEPT,
+          f"[18] the coarse prune keeps at least {PIPE_MIN_KEPT} Gaussians")
+    del back, v_model, c_model, r_model, out0, img0
+
+    # The stage entry points on the pipeline's artifacts.
+    ep_walls, ep_counts = {}, {}
+    guard = functools.partial(no_fallback, refuse_fused=False)
+
+    def entry(name, fn, want):
+        r, ep_walls[name], ep_counts[name], e = timed_entry(check, "[18]", name, fn, want, guard)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        return r
+
+    out2 = os.path.join(root, "entry")
+    refined2 = entry("train_refined", lambda: train_refined.main(
+        ["-s", scene_dir, "-m", art["mesh"], "-o", out2, "-f", str(ENTRY_REFINE_ITERS)], device=dev),
+        (ENTRY_REFINE_ITERS,) * 3)
+    r2 = load_ply(refined2, device=dev)
+    obj2 = os.path.join(out2, "textured.obj")  # the script makes no directory, as JAX's
+    entry("extract_refined_mesh_with_texture", lambda: extract_refined_mesh_with_texture.main(
+        ["-s", scene_dir, "-m", state, "-o", obj2], device=dev), (len(train_idx), 0, 0))
+    same_tex = np.array_equal(read_png(os.path.splitext(obj2)[0] + ".png"), png)
+    res = entry("metrics", lambda: metrics_script.main(
+        ["--scene_path", scene_dir, "--checkpoint", art["vanilla"], "--refined_state", state,
+         "--textured_obj", art["textured"], "--output", os.path.join(out2, "metrics.json")],
+        device=dev), None)
+    scores = {k: (v["psnr"], v["ssim"]) for k, v in res.items()}
+    print(f"[18] entry points on {card}: " + ", ".join(
+        f"{k} {ep_walls[k]:.2f} s {ep_counts[k]}" for k in ep_walls)
+        + f"; train_refined {int(r2.alive.sum())} Gaussians; the script's texture equals the "
+          f"pipeline's {same_tex}; metrics (PSNR dB, SSIM) on the held-out views "
+        + json.dumps({k: [round(p, 4), round(s_, 5)] for k, (p, s_) in scores.items()}))
+    check(int(r2.alive.sum()) == len(mf) and all(
+        bool(torch.isfinite(getattr(r2.params, f)).all()) for f in PARAM_FIELDS),
+        "[18] train_refined: the refined PLY loads back, finite, 1 Gaussian per triangle")
+    check(same_tex, "[18] extract_refined_mesh_with_texture bakes the pipeline's texture")
+    check(set(scores) == {"gaussians", "refined", "textured"}
+          and all(math.isfinite(p) and math.isfinite(s_) for p, s_ in scores.values()),
+          "[18] metrics: PSNR and SSIM finite for the three objects")
+    del r2
+
+    # The same config again on the same output: every stage skipped.
+    again = {}
+
+    def rerun(log_fn):
+        with no_fallback(refuse_fused=False):
+            again["art"] = pipeline_mod.run_full_pipeline(cfg, log_fn=log_fn, device=dev)
+
+    skipped, rcounts, resume_s = resumed_run(rerun)
+    print(f"[18] resumed run: {resume_s:.2f} s, stage_skip events {skipped}, launches (K1, K2, K3) "
+          f"{rcounts}")
+    check(skipped == list(PIPE_STAGES) and rcounts == (0, 0, 0) and again["art"] == art,
+          "[18] a resumed run skips all five stages and launches no kernel")
+    shutil.rmtree(root, ignore_errors=True)
+
+    total = tuple(sum(c) for c in zip(*(st["launches"] for st in stages.values()),
+                                      *ep_counts.values()))
+    wall = time.perf_counter() - t_phase
+    print(f"[18] summary on {card}: {wall:.1f} s (scene written {write_s:.2f} s, loaded "
+          f"{load_s:.2f} s, pipeline {pipe_s:.2f} s with its kernel checks); stages "
+          + ", ".join(f"{k} {v['wall_s']:.2f} s / {v['peak_gb']:.2f} GB / hand-off "
+                      f"{v['handoff_s']:.2f} s" for k, v in stages.items())
+          + f"; launches (K1, K2, K3) all {total}; kernels vs plain {json.dumps(errs)}")
+    return dict(launches=total, errs=errs, wall_s=wall)
 
 
 def main() -> int:
@@ -4397,9 +4858,14 @@ def main() -> int:
     # bench-scale section of scaling_report at 2 ranks.
     wc = phase_channels(check, dev, model, cams[0], view_caps[0], card)
 
+    # [18] the pipeline as the CLI builds it, at width, from a COLMAP scene
+    # on disk; the stage entry points on its artifacts.
+    pw = phase_pipeline_width(check, dev, card)
+
     k1n, k2n, k3n = (sum(c) for c in zip(tr["launches"], ex["launches"], rf["launches"],
                                          tx["launches"], pl["launches"], launches14,
-                                         pr["launches"], tl["launches"], wc["launches"]))
+                                         pr["launches"], tl["launches"], wc["launches"],
+                                         pw["launches"]))
     # max_abs_err: the largest over the comparisons at the paths' shapes
     # ([3] view 0 of the 1M scene, [10] the depth render, [11] a refine
     # step, [12] the bake's render, [13] each pipeline stage's last
@@ -4407,14 +4873,15 @@ def main() -> int:
     # oracle scene's last two-pass render, the last launches of
     # scripts.render and train_vanilla_gs, [15] each rank's band of the
     # tile-sharded fwd+bwd and train step, [16] the bench's last fwd+bwd,
-    # [17] view 0 at C = 3, 8 and 13).
+    # [17] view 0 at C = 3, 8 and 13, [18] each stage's and entry point's
+    # last launches).
+    later = (pr["errs"], tl["errs"], wc["errs"], pw["errs"])
     k1_err = max(k1_err, ex["k1_err"], rf["errs"]["K1"], tx["k1_err"], pl["errs"]["K1"],
-                 errs14["K1"], pr["errs"].get("K1", 0.0), tl["errs"].get("K1", 0.0),
-                 wc["errs"].get("K1", 0.0))
+                 errs14["K1"], *(e.get("K1", 0.0) for e in later))
     k2_err = max(k2_err, rf["errs"]["K2"], pl["errs"]["K2"], errs14["K2"],
-                 pr["errs"].get("K2", 0.0), tl["errs"].get("K2", 0.0), wc["errs"].get("K2", 0.0))
+                 *(e.get("K2", 0.0) for e in later))
     k3_err = max(k3_err, rf["errs"]["K3"], pl["errs"]["K3"], errs14["K3"],
-                 pr["errs"].get("K3", 0.0), tl["errs"].get("K3", 0.0), wc["errs"].get("K3", 0.0))
+                 *(e.get("K3", 0.0) for e in later))
     kernels = [
         dict(name="tile_composite_fwd", route="cuda",
              source="sugar_tpu_torch/csrc/tile_composite.cu",

@@ -1,8 +1,10 @@
 """COLMAP reconstruction parsers (binary + text), no external deps.
 
 A copy of ``sugar_tpu/io/colmap.py`` (numpy only), so the port needs
-nothing of the JAX package. Replaces the reference's ``gaussian_splatting/scene/colmap_loader.py``
-(:1-294): reads cameras/images/points3D in both ``.bin`` and ``.txt`` forms.
+nothing of the JAX package; only :func:`read_images_text` differs, reading
+an image whose 2D-point line is empty as the reference does. Replaces the
+reference's ``gaussian_splatting/scene/colmap_loader.py`` (:1-294): reads
+cameras/images/points3D in both ``.bin`` and ``.txt`` forms.
 Only the data needed by the pipeline is retained.
 """
 
@@ -131,15 +133,25 @@ def read_cameras_text(path: str) -> dict[int, ColmapCamera]:
 
 
 def read_images_text(path: str) -> dict[int, ColmapImage]:
+    """Each image is two lines: its pose, then its 2D points. The points
+    line may be empty (COLMAP and :func:`write_images_text` leave it empty
+    for an image without observations), so it is skipped whatever it holds,
+    as the reference's ``read_extrinsics_text`` does. The JAX package drops
+    every blank line first, so there an empty points line takes the next
+    image's pose line with it."""
     out = {}
     with open(path) as f:
-        lines = [l.strip() for l in f if l.strip() and not l.startswith("#")]
-    for i in range(0, len(lines), 2):  # every other line is the 2D point list
-        tok = lines[i].split()
+        lines = iter(f.readlines())
+    for line in lines:
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        tok = line.split()
         image_id = int(tok[0])
         qvec = np.array([float(x) for x in tok[1:5]])
         tvec = np.array([float(x) for x in tok[5:8]])
         out[image_id] = ColmapImage(image_id, qvec, tvec, int(tok[8]), tok[9])
+        next(lines, None)  # the 2D points
     return out
 
 
