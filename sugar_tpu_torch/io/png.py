@@ -7,8 +7,8 @@ point reads it back. The JAX package does both through Pillow
 export runs where Pillow is not installed. It adds no format: its files
 decode to the same arrays as Pillow's, and it reads what Pillow writes.
 
-- :func:`write_png`: 8-bit RGB (colour type 2), filter type 0 on every
-  row, one IDAT chunk.
+- :func:`write_png`: 8-bit RGB (colour type 2) or RGBA (6), filter type
+  0 on every row, one IDAT chunk.
 - :func:`read_png`: 8-bit gray (colour type 0), RGB (2) and RGBA (6),
   non-interlaced, filter types 0-4, any number of IDAT chunks. Returns
   (H, W) for gray and (H, W, C) otherwise, uint8, as ``np.asarray`` of a
@@ -32,13 +32,15 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def write_png(path: str, image: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG."""
+    """Write an (H, W, 3) or (H, W, 4) uint8 array as an 8-bit RGB or RGBA
+    PNG."""
     img = np.ascontiguousarray(image)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"write_png takes an (H, W, 3) uint8 array, got {img.dtype} {img.shape}")
-    h, w, _ = img.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"write_png takes an (H, W, 3) or (H, W, 4) uint8 array, got "
+                         f"{img.dtype} {img.shape}")
+    h, w, c = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIGNATURE + _chunk(b"IHDR", header)
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))

@@ -31,6 +31,7 @@ from sugar_tpu_torch.pipeline import (
     run_refine,
     run_vanilla,
 )
+from sugar_tpu_torch.utils.profiling import card_line
 
 # (scene, (vanilla, coarse, refine) iterations, capacity, extraction overrides)
 CONFIGS = {
@@ -134,7 +135,9 @@ def main(argv=None, device="cuda") -> dict:
     results: dict = dict(
         protocol="sugar_tpu_torch.eval.parity procedural blob; every-8th split "
         "(reference metrics.py:154-417, gs_model.py:133-143)",
-        device=torch.cuda.get_device_name(0) if on_card else "cpu",
+        # The card's name and power limit (nvidia-smi): a card set below
+        # its maximum power runs slower under load.
+        device=card_line() if on_card else "cpu",
         scene=scfg,
         iterations=dict(zip(("vanilla", "coarse", "refine"), iters)),
         stages={},
