@@ -1,0 +1,7 @@
+"""A training step's needed fp32 operations over its time, against the fp32 peak."""
+
+from benchmark import readers
+
+
+def read(ctx):
+    return readers.mfu(ctx, "train")
