@@ -1,0 +1,7 @@
+"""Share of the slots binning's expansion tested that it kept, per served run."""
+
+from benchmark import spans
+
+
+def read(ctx):
+    return spans.bin_yield(ctx, "serve")

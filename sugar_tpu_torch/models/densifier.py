@@ -36,6 +36,7 @@ from sugar_tpu_torch.models.gaussians import (
     inverse_sigmoid,
 )
 from sugar_tpu_torch.trainers.optimizer import AdamState
+from sugar_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +54,7 @@ class DensifyStats:
 
 
 @torch.no_grad()
+@profiling.spanned("densify.stats")
 def update_stats(
     stats: DensifyStats, ndc_grad: torch.Tensor, radii: torch.Tensor
 ) -> DensifyStats:

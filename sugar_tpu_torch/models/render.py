@@ -18,6 +18,7 @@ from sugar_tpu_torch.core.quaternions import normalize as quat_normalize
 from sugar_tpu_torch.models.gaussians import GaussianModel, GaussianParams
 from sugar_tpu_torch.raster import common as rc
 from sugar_tpu_torch.raster.api import rasterize_gaussians
+from sugar_tpu_torch.utils import profiling
 
 
 def render_model(
@@ -35,30 +36,35 @@ def render_model(
     big_cap: int | None = None,
 ) -> dict:
     """Render one view of the model. ``colors_override`` bypasses SH (depth
-    or feature renders)."""
+    or feature renders). Its top span is ``render.model`` when no other
+    is open (the served view)."""
     if active_sh_degree is None:
         active_sh_degree = model.sh_degree
-    settings = dataclasses.replace(
-        rc.from_camera(camera, bg=bg, device=model.device), sh_degree=active_sh_degree
-    )
-    k = (active_sh_degree + 1) ** 2
-    return rasterize_gaussians(
-        model.params.xyz,
-        model.opacities,
-        settings,
-        scales=model.scales,
-        quaternions=model.quaternions,
-        colors=colors_override,
-        shs=None if colors_override is not None else model.sh[:, :, :k],
-        alive_mask=model.alive,
-        ndc_offset=ndc_offset,
-        mode=mode,
-        dup_capacity=dup_capacity,
-        k_max=k_max,
-        tile_cap=tile_cap,
-        cap_a=cap_a,
-        big_cap=big_cap,
-    )
+    with profiling.span("render.model", outermost=True):
+        with profiling.span("render.setup"):
+            settings = dataclasses.replace(
+                rc.from_camera(camera, bg=bg, device=model.device), sh_degree=active_sh_degree
+            )
+            k = (active_sh_degree + 1) ** 2
+            opacities, scales, quaternions = model.opacities, model.scales, model.quaternions
+            shs = None if colors_override is not None else model.sh[:, :, :k]
+        return rasterize_gaussians(
+            model.params.xyz,
+            opacities,
+            settings,
+            scales=scales,
+            quaternions=quaternions,
+            colors=colors_override,
+            shs=shs,
+            alive_mask=model.alive,
+            ndc_offset=ndc_offset,
+            mode=mode,
+            dup_capacity=dup_capacity,
+            k_max=k_max,
+            tile_cap=tile_cap,
+            cap_a=cap_a,
+            big_cap=big_cap,
+        )
 
 
 def render_params(
@@ -77,17 +83,21 @@ def render_params(
 ) -> dict:
     """Render from raw params (the training path's entry point); the image
     is differentiable in every field of ``params`` and in ``ndc_offset``."""
-    settings = dataclasses.replace(
-        rc.from_camera(camera, bg=bg, device=params.xyz.device), sh_degree=active_sh_degree
-    )
-    k = (active_sh_degree + 1) ** 2
-    sh = torch.cat([params.sh_dc[:, :, None], params.sh_rest], dim=-1)
+    with profiling.span("render.setup"):
+        settings = dataclasses.replace(
+            rc.from_camera(camera, bg=bg, device=params.xyz.device), sh_degree=active_sh_degree
+        )
+        k = (active_sh_degree + 1) ** 2
+        sh = torch.cat([params.sh_dc[:, :, None], params.sh_rest], dim=-1)
+        opacities = torch.sigmoid(params.opacity_logit)
+        scales = torch.exp(params.log_scales)
+        quaternions = quat_normalize(params.quaternions)
     return rasterize_gaussians(
         params.xyz,
-        torch.sigmoid(params.opacity_logit),
+        opacities,
         settings,
-        scales=torch.exp(params.log_scales),
-        quaternions=quat_normalize(params.quaternions),
+        scales=scales,
+        quaternions=quaternions,
         shs=sh[:, :, :k],
         alive_mask=alive,
         ndc_offset=ndc_offset,

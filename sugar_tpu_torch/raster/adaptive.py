@@ -25,6 +25,8 @@ from typing import Any, Callable
 
 import torch
 
+from sugar_tpu_torch.utils import profiling
+
 _CHUNK = 256  # = tile_composite.C_CHUNK
 
 
@@ -99,6 +101,7 @@ _OVF_KEYS = (
 )
 
 
+@profiling.spanned("caps.read")
 def read_overflow(out: dict[str, Any]) -> dict[str, int]:
     """Fetch the overflow diagnostics of a render output as host ints (one
     device-to-host copy)."""

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from sugar_tpu_torch.raster.segsum import segment_sum_sorted
+from sugar_tpu_torch.utils import profiling
 
 
 def round8(x: int) -> int:
@@ -52,6 +53,7 @@ class GatherDup(torch.autograd.Function):
         return packed.index_select(1, safe)
 
     @staticmethod
+    @profiling.spanned("raster.gather_bwd")
     def backward(ctx, ct):
         gid, grads_exact = ctx.saved_tensors
         n, live = ctx.n, ctx.live_rows

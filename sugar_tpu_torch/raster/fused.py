@@ -30,6 +30,7 @@ from sugar_tpu_torch.raster.binning import depth_order, tile_ranges
 from sugar_tpu_torch.raster.dup_gather import gather_dup, pack_params, pad_rows
 from sugar_tpu_torch.raster.preprocess import Preprocessed
 from sugar_tpu_torch.raster.tile_composite import C_CHUNK, tile_composite
+from sugar_tpu_torch.utils import profiling
 
 # Safety margin on the support test: the continuous box minimum is computed
 # in f32; err on the side of KEEPING a boundary tile.
@@ -197,6 +198,7 @@ def expand_support_culled(
 
 
 @torch.no_grad()  # the stop_gradient(prep) of the JAX package's render_fused
+@profiling.spanned("raster.binning")
 def bin_fused(
     prep: Preprocessed,
     num_tiles: int,
@@ -215,6 +217,11 @@ def bin_fused(
     plus one chunk and ``gid`` holds the sentinel n on invalid/padding
     slots. ``inexact`` counts real dup slots dropped by big_cap/capacity
     truncation.
+
+    While a profiler collects it counts the slots kept
+    (``raster.slots_kept``, the device scalar ``num_rendered``) and the
+    expansion's validity tests (``raster.slots_tested``: the full capped
+    rect of every row, then bucket B's slots past ``cap_a``).
     """
     n = prep.tiles_touched.shape[0]
     dev = prep.mean2d.device
@@ -232,6 +239,8 @@ def bin_fused(
             rank.to(torch.float32),
         )
     )
+    profiling.count("raster.slots_kept", num_rendered)
+    profiling.count("raster.slots_tested", tile_cap * n + (tile_cap - cap_a) * big_cap)
     rank_e = pay_e.to(torch.int64)
 
     # THE sort: [tile | depth-rank] as one int64 key. (tile, rank) pairs
@@ -300,8 +309,9 @@ def bin_and_gather(
     num_tiles = settings.tiles_x * settings.tiles_y
     b = bin_fused(prep, num_tiles, settings.tiles_x, tile_cap, cap_a, big_cap, capacity)
     live_rows = 6 + prep.color.shape[-1]
-    packed = pad_rows(pack_params(prep.mean2d, prep.conic, prep.opacity, prep.color))
-    return b, gather_dup(packed, b["gid"], n, b["inexact"] == 0, live_rows)
+    with profiling.span("raster.gather"):
+        packed = pad_rows(pack_params(prep.mean2d, prep.conic, prep.opacity, prep.color))
+        return b, gather_dup(packed, b["gid"], n, b["inexact"] == 0, live_rows)
 
 
 def assemble_tiles(x: torch.Tensor, settings: rc.RasterSettings) -> torch.Tensor:

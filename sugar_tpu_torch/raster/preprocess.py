@@ -20,6 +20,7 @@ import torch
 
 from sugar_tpu_torch.core import sh as sh_lib
 from sugar_tpu_torch.raster import common as rc
+from sugar_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +142,7 @@ def _tile_index(x: torch.Tensor, hi: int) -> torch.Tensor:
     return torch.clamp(x.to(torch.int32), 0, hi)
 
 
+@profiling.spanned("raster.preprocess")
 def preprocess(
     means3d: torch.Tensor,
     opacities: torch.Tensor,

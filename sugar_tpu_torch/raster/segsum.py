@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from sugar_tpu_torch import native
+from sugar_tpu_torch.utils import profiling
 
 
 def segment_sum_plain(ct: torch.Tensor, gid: torch.Tensor, n: int) -> torch.Tensor:
@@ -116,6 +117,7 @@ def segment_sum_cuda(ct: torch.Tensor, gid: torch.Tensor, n: int) -> torch.Tenso
 segment_sum_cuda.launches = 0
 
 
+@profiling.spanned("raster.k3")
 def segment_sum_sorted(ct: torch.Tensor, gid_sorted: torch.Tensor, n: int) -> torch.Tensor:
     """Returns (rows, n): out[:, g] = sum of ct columns with gid == g, for
     columns sorted by ascending gid; sentinel ids (>= n) are dropped. CUDA

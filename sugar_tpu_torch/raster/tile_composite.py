@@ -45,6 +45,7 @@ import torch
 from sugar_tpu_torch import native
 from sugar_tpu_torch.raster import common as rc
 from sugar_tpu_torch.raster.dup_gather import round8
+from sugar_tpu_torch.utils import profiling
 
 C_CHUNK = 256  # dup slots per chunk
 P_TILE = rc.TILE_X * rc.TILE_Y  # pixels per tile
@@ -597,6 +598,7 @@ class TileComposite(torch.autograd.Function):
     cotangent are sums outside the kernel, as in the JAX package."""
 
     @staticmethod
+    @profiling.spanned("raster.k1")
     def forward(ctx, tile_start, tile_count, dup_data, bg, tiles_x, ch, max_chunks):
         if dup_data.is_cuda:
             out = tile_composite_cuda(tile_start, tile_count, dup_data, tiles_x, ch, max_chunks)
@@ -612,6 +614,7 @@ class TileComposite(torch.autograd.Function):
         return image, out.final_t, out.n_contrib
 
     @staticmethod
+    @profiling.spanned("raster.k2")
     def backward(ctx, g_img, g_t, _g_n):
         tile_start, tile_count, dup_data, bg, t_fin, entry_p, nch = ctx.saved_tensors
         tiles_x, ch, max_chunks = ctx.shape

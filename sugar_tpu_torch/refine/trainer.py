@@ -36,7 +36,7 @@ from sugar_tpu_torch.trainers import optimizer as opt
 from sugar_tpu_torch.trainers.schedule import CameraSchedule
 from sugar_tpu_torch.trainers.vanilla import _LOGGED_OVERFLOW
 from sugar_tpu_torch.utils import checkpoint as ckpt
-from sugar_tpu_torch.utils import losses
+from sugar_tpu_torch.utils import losses, profiling
 
 
 @dataclasses.dataclass
@@ -105,6 +105,7 @@ def bound_lrs(cfg: RefineConfig, spatial_lr_scale: float) -> dict[str, Callable]
 
 
 @torch.no_grad()
+@profiling.spanned("optimizer")
 def bound_adam_step(params: B.BoundParams, grads: B.BoundParams, state: BoundAdamState, step,
                     lrs: dict[str, Callable], cfg: RefineConfig):
     """One Adam update of every BoundParams field; returns new params and
@@ -144,10 +145,13 @@ def render_bound(
 ) -> dict:
     """Render the bound Gaussians; differentiable in every field of
     ``params``."""
-    arrs = B.to_gaussian_arrays(params, bm)
-    settings = dataclasses.replace(
-        rc.from_camera(camera, bg=bg, device=params.vertices.device), sh_degree=active_sh_degree
-    )
+    with profiling.span("bound.gaussians"):
+        arrs = B.to_gaussian_arrays(params, bm)
+    with profiling.span("render.setup"):
+        settings = dataclasses.replace(
+            rc.from_camera(camera, bg=bg, device=params.vertices.device),
+            sh_degree=active_sh_degree,
+        )
     k = (active_sh_degree + 1) ** 2
     return rasterize_gaussians(
         arrs["centers"],
@@ -192,13 +196,15 @@ def refine_loss(
         p, bm, camera, active_sh_degree, bg, dup_capacity, k_max,
         mode=render_mode, tile_cap=tile_cap, cap_a=cap_a, big_cap=big_cap,
     )
-    img = rc.clip(out["image"], 0.0, 1.0)
-    loss = losses.rgb_loss_l1_dssim(img, gt, cfg.dssim_factor)
-    loss = loss + cfg.normal_consistency_factor * B.normal_consistency_loss(
-        p.vertices, bm.faces, pairs
-    )
-    with torch.no_grad():
-        aux = dict(psnr=losses.psnr(img.detach(), gt))
+    with profiling.span("loss"):
+        img = rc.clip(out["image"], 0.0, 1.0)
+        loss = losses.rgb_loss_l1_dssim(img, gt, cfg.dssim_factor)
+        with profiling.span("loss.normal"):
+            loss = loss + cfg.normal_consistency_factor * B.normal_consistency_loss(
+                p.vertices, bm.faces, pairs
+            )
+        with torch.no_grad():
+            aux = dict(psnr=losses.psnr(img.detach(), gt))
     aux.update({k: out[k] for k in adaptive._OVF_KEYS if k in out})
     return loss, aux
 
@@ -216,6 +222,7 @@ def make_refine_step(
     aux) with aux holding the loss, the PSNR and the overflow counters
     (device tensors, not synced); its inputs are left unchanged."""
 
+    @profiling.spanned("refine.step")
     def step_fn(params: B.BoundParams, adam: BoundAdamState, camera: Camera, gt, it):
         leaves = [getattr(params, f).detach().requires_grad_(True) for f in B.BOUND_FIELDS]
         loss, aux = refine_loss(
@@ -223,8 +230,9 @@ def make_refine_step(
             active_sh_degree, caps.dup_capacity, k_max=caps.k_max, tile_cap=caps.tile_cap,
             cap_a=caps.cap_a, big_cap=caps.big_cap,
         )
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+        with profiling.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
         new_params, new_adam = bound_adam_step(
             params, B.BoundParams(**dict(zip(B.BOUND_FIELDS, grads))), adam, it, lrs, cfg)
         aux["loss"] = loss.detach()

@@ -21,6 +21,7 @@ from typing import Callable
 import torch
 
 from sugar_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianParams
+from sugar_tpu_torch.utils import profiling
 
 
 def expon_lr_schedule(
@@ -112,6 +113,7 @@ def group_lrs(cfg: OptimConfig, spatial_lr_scale: float) -> dict[str, Callable]:
 
 
 @torch.no_grad()
+@profiling.spanned("optimizer")
 def adam_step(
     params: GaussianParams,
     grads: GaussianParams,

@@ -36,7 +36,7 @@ from sugar_tpu_torch.raster.common import clip
 from sugar_tpu_torch.trainers import optimizer as opt
 from sugar_tpu_torch.trainers.schedule import CameraSchedule, iteration_generator
 from sugar_tpu_torch.utils import checkpoint as ckpt
-from sugar_tpu_torch.utils import losses
+from sugar_tpu_torch.utils import losses, profiling
 from sugar_tpu_torch.viewer.network_gui import camera_from_message
 
 _LOGGED_OVERFLOW = ("bin_overflow", "big_overflow", "cap_overflow", "tile_overflow")
@@ -81,6 +81,7 @@ def make_train_step(
     params, new adam, new stats, aux) with aux holding the loss, the PSNR,
     the radii and the overflow counters (device tensors, not synced)."""
 
+    @profiling.spanned("train.step")
     def step_fn(
         params: GaussianParams,
         alive: torch.Tensor,
@@ -100,17 +101,20 @@ def make_train_step(
             mode=cfg.render_mode, tile_cap=caps.tile_cap, cap_a=caps.cap_a,
             big_cap=caps.big_cap,
         )
-        img = clip(out["image"], 0.0, 1.0)
-        loss = losses.rgb_loss_l1_dssim(img, gt, cfg.lambda_dssim)
-        grads = torch.autograd.grad(loss, leaves + [probe], allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves + [probe], grads)]
+        with profiling.span("loss"):
+            img = clip(out["image"], 0.0, 1.0)
+            loss = losses.rgb_loss_l1_dssim(img, gt, cfg.lambda_dssim)
+            with torch.no_grad():
+                psnr = losses.psnr(img.detach(), gt)
+        with profiling.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves + [probe], allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(leaves + [probe], grads)]
         new_params, new_adam = opt.adam_step(
             params, GaussianParams(**dict(zip(PARAM_FIELDS, grads))), adam, it, lrs, cfg.optim
         )
         new_stats = dens.update_stats(stats, grads[-1], out["radii"])
-        with torch.no_grad():
-            aux = dict(loss=loss.detach(), psnr=losses.psnr(img.detach(), gt),
-                       radii=out["radii"])
+        aux = dict(loss=loss.detach(), psnr=psnr, radii=out["radii"])
         aux.update({k: out[k] for k in adaptive._OVF_KEYS if k in out})
         return new_params, new_adam, new_stats, aux
 

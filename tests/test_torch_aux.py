@@ -2,7 +2,8 @@
 reader and writer (``io/png.py``) both ways; the network viewer protocol
 on localhost, alone and served by the vanilla trainer;
 ``camera_from_message``; the Blender trajectory and animation files;
-``StageTimer`` and ``trace``; ``write_scene_descriptor``; and
+the span recorder (``span``, ``count``, ``recorded``, ``reset``) and
+``trace``; ``write_scene_descriptor``; and
 ``rasterize_gaussians(debug=True)``'s non-finite snapshot.
 """
 
@@ -29,7 +30,7 @@ from sugar_tpu_torch.io.png import read_png, write_png
 from sugar_tpu_torch.raster import common as rc
 from sugar_tpu_torch.raster.api import rasterize_gaussians
 from sugar_tpu_torch.trainers.vanilla import TrainConfig, train_vanilla_3dgs
-from sugar_tpu_torch.utils.profiling import StageTimer, trace
+from sugar_tpu_torch.utils import profiling
 from sugar_tpu_torch.viewer import export
 from sugar_tpu_torch.viewer.network_gui import NetworkGUI, camera_from_message
 
@@ -275,22 +276,39 @@ def test_blender_trajectory_and_animation_match_jax(tmp_path):
 
 
 def test_stage_timer_and_trace(tmp_path):
-    t = StageTimer()
-    with t.time("a"):
-        x = torch.zeros(8) + 1
-    with t.time("a", block_on={"x": x, "y": [x, None]}):
-        pass
-    with t.time("b", block_on=x):
-        pass
-    s = t.summary()
-    assert s["a"]["count"] == 2 and s["b"]["count"] == 1 and s["a"]["total_s"] >= 0
-    assert set(s["a"]) == {"total_s", "count", "mean_ms"}
-    t.dump(str(tmp_path / "timer.json"))
-    with open(tmp_path / "timer.json") as f:
-        assert json.load(f)["b"]["count"] == 1
-    with trace(str(tmp_path / "trace")):
+    """The recorder: nothing without a profiler; under ``trace`` nested
+    spans with their parents and top span, counters, ``spans.json`` summed
+    by name beside ``trace.json``; ``reset`` forgets."""
+    x = torch.zeros(8)
+    with profiling.span("a"):
+        x = x + 1
+    profiling.count("n", 3)
+    assert profiling.recorded() == dict(spans=[], counters=[], dropped=0)
+    with profiling.trace(str(tmp_path / "trace")) as prof:
+        for _ in range(2):
+            with profiling.span("a"):
+                with profiling.span("b"):
+                    x = x + 1
+                    profiling.count("n", torch.tensor(2))
+                    profiling.count("n", 5)
         torch.ones(16) @ torch.ones(16)
+    assert {"a", "b"} <= {e.name for e in prof.events()}
+    rec = profiling.recorded()
+    a1, b1 = rec["spans"][1], rec["spans"][0]
+    assert (b1["name"], b1["parent"], b1["top"]) == ("b", a1["id"], a1["id"])
+    assert a1["parent"] is None and a1["host_start_ns"] <= b1["host_start_ns"]
+    assert b1["host_end_ns"] <= a1["host_end_ns"] and b1["device_ms"] is None
+    assert [c["value"] for c in rec["counters"]] == [2, 5, 2, 5]
+    assert rec["counters"][0]["span"] == b1["id"]
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    with open(tmp_path / "trace" / "spans.json") as f:
+        summ = json.load(f)
+    assert summ["spans"]["a"]["count"] == 2 and summ["spans"]["b"]["count"] == 2
+    assert summ["spans"]["a"]["host_ms"] >= summ["spans"]["b"]["host_ms"] > 0
+    assert summ["spans"]["a"]["device_ms"] is None
+    assert summ["counters"]["n"] == dict(count=4, total=14)
+    profiling.reset()
+    assert profiling.recorded() == dict(spans=[], counters=[], dropped=0)
 
 
 def test_write_scene_descriptor_matches_jax(tmp_path):
