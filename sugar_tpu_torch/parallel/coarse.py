@@ -159,7 +159,7 @@ def train_coarse_sharded(
 def coarse_rank(device, model, cameras, images, extent, cfg, n_data, n_gauss, seed=0):
     """``parallel.launch.run_ranks`` entry: the sharded coarse loop on
     this rank; returns (model, the log records of rank 0, the last of
-    them every rank's K1-K3 launches)."""
+    them every rank's K1-K3 and binning launches)."""
     since = kernel_launches()
     logs: list[dict] = []
     mesh = make_mesh(n_data=n_data, n_gauss=n_gauss, device=device)

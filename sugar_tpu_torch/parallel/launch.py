@@ -27,8 +27,9 @@ host); :func:`to_device` moves the tensors inside dataclasses, dicts,
 lists and tuples.
 
 Each rank entry of the package reports its ranks' launches of the three
-CUDA kernels (:func:`launches_by_rank`), so a caller can tell that a
-sharded stage ran them.
+compositing CUDA kernels and of the binning kernels
+(:func:`launches_by_rank`), so a caller can tell that a sharded stage ran
+them.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.multiprocessing.spawn import ProcessException
 
+from sugar_tpu_torch.raster.fused import bin_fused_cuda
 from sugar_tpu_torch.raster.segsum import segment_sum_cuda
 from sugar_tpu_torch.raster.tile_composite import tile_composite_bwd_cuda, tile_composite_cuda
 
@@ -89,16 +91,18 @@ def to_device(obj: Any, device) -> Any:
     return obj
 
 
-def kernel_launches() -> tuple[int, int, int]:
-    """This process's launches so far of K1, K2 and K3 (the compositing
-    forward and backward and the gradient segment-sum)."""
+def kernel_launches() -> tuple[int, int, int, int]:
+    """This process's launches so far of K1, K2, K3 (the compositing
+    forward and backward and the gradient segment-sum) and of the binning
+    kernels (one a ``bin_fused`` call on the card)."""
     return (tile_composite_cuda.launches, tile_composite_bwd_cuda.launches,
-            segment_sum_cuda.launches)
+            segment_sum_cuda.launches, bin_fused_cuda.launches)
 
 
-def launches_by_rank(since: tuple[int, int, int]) -> list[tuple[int, int, int]]:
-    """Every rank's K1-K3 launches since its own ``since`` (an earlier
-    :func:`kernel_launches`), gathered over the world in rank order."""
+def launches_by_rank(since: tuple[int, ...]) -> list[tuple[int, int, int, int]]:
+    """Every rank's K1-K3 and binning launches since its own ``since`` (an
+    earlier :func:`kernel_launches`), gathered over the world in rank
+    order."""
     mine = tuple(a - b for a, b in zip(kernel_launches(), since))
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)

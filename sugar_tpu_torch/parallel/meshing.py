@@ -30,7 +30,7 @@ def level_set_rank(device, model: GaussianModel, cameras: list, surface_level: f
     group; returns, on rank 0, every camera's valid pixel indices with
     their points, normals and Gaussian ids (host numpy) and its depth
     render's overflow counters, in camera order, and every rank's K1-K3
-    launches."""
+    and binning launches."""
     since = kernel_launches()
     axis = world_axis()
     model = to_device(model, device)
@@ -70,7 +70,7 @@ def collect_surface_points_sharded(
     over ``world`` ranks on ``device`` ("cuda" or "cpu"), called by a
     single controller: it starts the ranks (``parallel.launch``) and
     subsamples on the caller's side. The result also holds ``launches``,
-    every rank's K1-K3 launches."""
+    every rank's K1-K3 and binning launches."""
     if not isinstance(world, int):
         raise TypeError(f"world must be a number of ranks, got {type(world).__name__}")
     rng = rng or np.random.default_rng(0)

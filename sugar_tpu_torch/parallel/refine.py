@@ -154,7 +154,7 @@ def refine_rank(device, vertices, faces, vertex_colors, cameras, images, extent,
                 n_gauss, seed=0):
     """``parallel.launch.run_ranks`` entry: the sharded refinement on this
     rank; returns ((params, bm), the log records of rank 0, the last of
-    them every rank's K1-K3 launches)."""
+    them every rank's K1-K3 and binning launches)."""
     since = kernel_launches()
     logs: list[dict] = []
     mesh = make_mesh(n_data=n_data, n_gauss=n_gauss, device=device)

@@ -13,7 +13,11 @@ each rank:
 3. expand the shard into (tile, depth, gid) slots with the fused path's
    exact-support culling (``raster.fused.expand_support_culled``, the
    float depth as payload: a per-shard depth rank would not be globally
-   consistent) and group them by destination band (a sort by tile);
+   consistent) and group them by destination band (a sort by tile). This
+   is the torch route of the fused binning on every device, the card
+   included (the path has no benchmark cell): ``tile_cap``, ``cap_a``
+   and ``big_cap`` bound it here, and rect or bucket slots past them are
+   dropped and counted, where ``bin_fused`` on the card has no such caps;
 4. route fixed-capacity blocks of slots to the band owners
    (``comm.all_to_all``); slots past ``route_cap`` per (source, band) are
    dropped and counted in ``route_overflow``;

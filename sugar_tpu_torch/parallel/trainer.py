@@ -140,7 +140,7 @@ def vanilla_rank(device, cameras, images, points, colors, extent, cfg, n_data, n
                  seed=0):
     """``parallel.launch.run_ranks`` entry: the sharded loop on this rank;
     returns (model, the log records of rank 0, the last of them every
-    rank's K1-K3 launches)."""
+    rank's K1-K3 and binning launches)."""
     since = kernel_launches()
     logs: list[dict] = []
     model = train_vanilla_sharded(

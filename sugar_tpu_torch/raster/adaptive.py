@@ -8,6 +8,12 @@ matching capacity grows and the view is rendered again:
   of ``bin_overflow``. Grows to cover ``max_tiles_touched``.
 - ``big_cap``      — bucket-B rows for Gaussians whose rect exceeds
   ``cap_a``. Counter: ``big_overflow``. Grows toward ``num_big``.
+
+  ``tile_cap``, ``cap_a`` and ``big_cap`` bound the CPU route of
+  ``raster.fused.bin_fused`` and the tile-sharded path
+  (``parallel/render.py``) only. On the card ``bin_fused`` bins every
+  rect tile, so neither counter rises there and the two caps never grow
+  (``tile_cap`` still sets the ``num_big`` it reports).
 - ``dup_capacity`` — total duplication slots. Counter: ``cap_overflow``.
   Grows to ``num_rendered`` plus slack, rounded to the chunk size.
 - ``k_max``        — per-tile compositing depth. Counter:
@@ -45,9 +51,9 @@ class RasterCaps:
     tile_cap: int = 8
     dup_capacity: int | None = None  # None = rasterize_gaussians' default
     k_max: int = 4096
-    # Fused-binning bucket sizing (raster/fused.py): every Gaussian owns
-    # cap_a rect slots; Gaussians with bigger rects get one of big_cap
-    # wide rows. None = render_fused's n-derived default.
+    # Fused-binning bucket sizing (raster/fused.py, its CPU route): every
+    # Gaussian owns cap_a rect slots; Gaussians with bigger rects get one
+    # of big_cap wide rows. None = render_fused's n-derived default.
     cap_a: int = 4
     big_cap: int | None = None
 

@@ -1,14 +1,28 @@
 """Fused binning and the production render path.
 
-Port of ``sugar_tpu/raster/fused.py``: a bucketed, exact-support-culled
-expansion of each Gaussian's tile rect whose [tile | depth-rank] sort
-carries only (key, gaussian id), then ONE column gather of the packed
+Port of ``sugar_tpu/raster/fused.py``: binning that carries only (depth
+rank, gaussian id) per dup slot, then ONE column gather of the packed
 render data into dup order (``dup_gather``), then per-tile compositing
 (``tile_composite``).
 
-- Bucket A: every Gaussian owns ``cap_a`` rect slots. Bucket B: the
-  Gaussians whose rect exceeds ``cap_a`` tiles are compacted into
-  ``big_cap`` extra rows of ``tile_cap - cap_a`` slots.
+``bin_fused`` takes one of two routes, by the device its input lies on:
+
+- CPU tensors: the JAX package's bucketed static expansion, bit-equal
+  with it. Bucket A: every Gaussian owns ``cap_a`` rect slots. Bucket B:
+  the Gaussians whose rect exceeds ``cap_a`` tiles are compacted into
+  ``big_cap`` extra rows of ``tile_cap - cap_a`` slots. Then one sort of
+  the whole buffer by [tile | depth rank], truncated to the capacity.
+  ``tile_cap``, ``cap_a`` and ``big_cap`` bound this route (and the
+  tile-sharded path of ``parallel/render.py``, which expands per band with
+  ``expand_support_culled``) and nothing else.
+- CUDA tensors: the hand-written kernels of ``csrc/binning.cu``
+  (``bin_fused_cuda``): every tile of every rect is tested, only the kept
+  slots are written, and each tile's slots are ordered by depth rank. The
+  capacity is the only capacity; no rect or bucket slot is dropped, and
+  the host reads nothing from the card. Its plain version,
+  ``bin_fused_plain``, is the CPU route at covering caps. The two routes
+  agree whenever the CPU route drops no rect or bucket slot.
+
 - Exact-support culling: a rect tile whose pixel box lies wholly outside
   the alpha >= 1/255 ellipse (continuous box minimum of the conic
   quadratic vs ln(opacity * 255)) is dropped; the compositing gate would
@@ -23,8 +37,12 @@ grows the capacities from them.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from sugar_tpu_torch import native
 from sugar_tpu_torch.raster import common as rc
 from sugar_tpu_torch.raster.binning import depth_order, tile_ranges
 from sugar_tpu_torch.raster.dup_gather import gather_dup, pack_params, pad_rows
@@ -91,6 +109,13 @@ def _slot_valid(tx, ty, j, counts, mx, my, ca, cb, cc, qmax):
     return in_rect & (qmin <= qmax + _Q_EPS)
 
 
+def support_qmax(opacity: torch.Tensor) -> torch.Tensor:
+    """ln(opacity / ALPHA_CUTOFF), opacity floored at 1e-30: the largest
+    conic quadratic whose alpha reaches the cutoff. Both routes take it
+    with these torch ops, so a boundary tile falls the same way."""
+    return torch.log(torch.clamp(opacity, min=1e-30) / rc.ALPHA_CUTOFF)
+
+
 def expand_support_culled(
     prep: Preprocessed,
     num_tiles: int,
@@ -118,7 +143,7 @@ def expand_support_culled(
 
     mx, my = prep.mean2d[:, 0], prep.mean2d[:, 1]
     ca, cb, cc = prep.conic[:, 0], prep.conic[:, 1], prep.conic[:, 2]
-    qmax = torch.log(torch.clamp(prep.opacity, min=1e-30) / rc.ALPHA_CUTOFF)
+    qmax = support_qmax(prep.opacity)
     counts = torch.clamp(prep.tiles_touched, max=tile_cap).to(torch.int32)
     rmin_x, rmin_y = prep.rect_min[:, 0], prep.rect_min[:, 1]
     rect_w = torch.clamp(prep.rect_max[:, 0] - rmin_x, min=1)
@@ -197,9 +222,22 @@ def expand_support_culled(
     )
 
 
-@torch.no_grad()  # the stop_gradient(prep) of the JAX package's render_fused
-@profiling.spanned("raster.binning")
-def bin_fused(
+def dup_pad(capacity: int) -> int:
+    """D_pad: the chunk-aligned capacity plus one chunk, which keeps the
+    last tile's chunk walk in bounds."""
+    return ((capacity + C_CHUNK - 1) // C_CHUNK) * C_CHUNK + C_CHUNK
+
+
+def depth_rank(prep: Preprocessed) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gsort, rank) (N,) int64: the stable sort of ALL n depths and each
+    Gaussian's place in it."""
+    gsort = depth_order(prep.depth)
+    rank = torch.empty_like(gsort)
+    rank[gsort] = torch.arange(gsort.shape[0], device=gsort.device)
+    return gsort, rank
+
+
+def bin_fused_torch(
     prep: Preprocessed,
     num_tiles: int,
     tiles_x: int,
@@ -208,15 +246,8 @@ def bin_fused(
     big_cap: int,
     capacity: int,
 ) -> dict:
-    """Bucketed, support-culled binning. Carries no gradient (the support
-    and order decisions are not differentiable, as CUDA's rect is not).
-
-    Returns dict(gid (D_pad,), tile_start (T,), tile_count (T,),
-    counts_culled (N,), num_rendered (), overflow (), inexact (),
-    big_overflow (), num_big ()) where D_pad is the chunk-aligned capacity
-    plus one chunk and ``gid`` holds the sentinel n on invalid/padding
-    slots. ``inexact`` counts real dup slots dropped by big_cap/capacity
-    truncation.
+    """The CPU route of ``bin_fused``: the bucketed static expansion, then
+    the [tile | depth rank] sort of the whole buffer, truncated to D_pad.
 
     While a profiler collects it counts the slots kept
     (``raster.slots_kept``, the device scalar ``num_rendered``) and the
@@ -228,11 +259,7 @@ def bin_fused(
     cap_a = min(cap_a, tile_cap)
     big_cap = min(big_cap, n)
 
-    # Depth rank per Gaussian, from the stable sort of ALL n depths.
-    gsort = depth_order(prep.depth)
-    rank = torch.empty_like(gsort)
-    rank[gsort] = torch.arange(n, device=dev)
-
+    _, rank = depth_rank(prep)
     tile_e, pay_e, gid_e, counts_culled, num_rendered, big_overflow = (
         expand_support_culled(
             prep, num_tiles, tiles_x, tile_cap, cap_a, big_cap,
@@ -252,9 +279,8 @@ def bin_fused(
     sorted_tile = (sorted_key >> rank_bits).to(torch.int32)
     gid_s = gid_e[order]
 
-    # Truncate to the chunk-aligned capacity (valid slots sort first); the
-    # extra trailing chunk keeps the last tile's chunk walk in bounds.
-    d_pad = ((capacity + C_CHUNK - 1) // C_CHUNK) * C_CHUNK + C_CHUNK
+    # Truncate to the chunk-aligned capacity (valid slots sort first).
+    d_pad = dup_pad(capacity)
     e_total = tile_e.shape[0]
     if e_total < d_pad:
         pad = d_pad - e_total
@@ -279,8 +305,185 @@ def bin_fused(
         overflow=rect_overflow + big_overflow + cap_overflow,
         inexact=big_overflow + cap_overflow,
         big_overflow=big_overflow,
-        num_big=(torch.clamp(prep.tiles_touched, max=tile_cap) > cap_a).sum(dtype=torch.int64),
+        num_big=_num_big(prep, tile_cap, cap_a),
     )
+
+
+@torch.no_grad()
+def bin_fused_plain(
+    prep: Preprocessed,
+    num_tiles: int,
+    tiles_x: int,
+    tile_cap: int,
+    cap_a: int,
+    capacity: int,
+) -> dict:
+    """The plain version of ``bin_fused_cuda``: ``bin_fused_torch`` at
+    covering caps (tile_cap = cap_a = the largest rect, so bucket A holds
+    every rect tile), with ``num_big`` counted at the caller's caps. It
+    reads the largest rect to the host, and its expansion costs n x that
+    many slots."""
+    n = prep.tiles_touched.shape[0]
+    cover = max(1, int(prep.tiles_touched.max())) if n else 1
+    b = bin_fused_torch(prep, num_tiles, tiles_x, cover, cover, n, capacity)
+    b["num_big"] = _num_big(prep, tile_cap, cap_a)
+    return b
+
+
+def _num_big(prep: Preprocessed, tile_cap: int, cap_a: int) -> torch.Tensor:
+    return (torch.clamp(prep.tiles_touched, max=tile_cap) > min(cap_a, tile_cap)).sum(
+        dtype=torch.int64)
+
+
+def _kernel_fns():
+    lib = native.load("binning")
+    run, grid = lib.sugar_bin_fused, lib.sugar_bin_fused_grid
+    if run.argtypes is None:
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        grid.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
+        grid.restype = ctypes.c_int
+        run.argtypes = [vp] * 8 + [i32] * 3 + [i64] * 2 + [i32] + [vp] * 11
+        run.restype = ctypes.c_int
+    return run, grid
+
+
+@functools.lru_cache(maxsize=64)
+def _visit_grid(device_index: int, num_tiles: int, n: int) -> int:
+    """Blocks of the kernels' visit passes: as many as stay resident on
+    the card (each holds a histogram row of ``num_tiles`` ints, in shared
+    memory up to 24,576 tiles and in global memory past that, where at
+    most four blocks an SM run), no more than n needs."""
+    _, fn = _kernel_fns()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = fn(num_tiles, n, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"binning grid query failed for {num_tiles} tiles: CUDA error {err}")
+    return out.value
+
+
+def _check_cuda_inputs(prep: Preprocessed, num_tiles: int, tiles_x: int) -> None:
+    dev = prep.mean2d.device
+    fields = dict(mean2d=(torch.float32, (2,)), conic=(torch.float32, (3,)),
+                  opacity=(torch.float32, ()), depth=(torch.float32, ()),
+                  rect_min=(torch.int32, (2,)), rect_max=(torch.int32, (2,)),
+                  tiles_touched=(torch.int32, ()))
+    n = prep.tiles_touched.shape[0]
+    for name, (dtype, tail) in fields.items():
+        x = getattr(prep, name)
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != (n, *tail):
+            raise ValueError(f"prep.{name} must be {dtype} {(n, *tail)} on {dev}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if not 1 <= tiles_x <= num_tiles or num_tiles % tiles_x:
+        raise ValueError(f"{num_tiles} tiles is not a grid {tiles_x} tiles wide")
+    if n >= 2**31 - 1:
+        raise ValueError(f"binning on the card supports < 2^31 - 1 Gaussians, got {n}")
+
+
+@torch.no_grad()
+def bin_fused_cuda(
+    prep: Preprocessed,
+    num_tiles: int,
+    tiles_x: int,
+    tile_cap: int,
+    cap_a: int,
+    capacity: int,
+) -> dict:
+    """The CUDA route of ``bin_fused``: ``csrc/binning.cu`` on the current
+    stream (count, scan, emit, per-tile order). Every rect tile is tested
+    (``tile_cap`` and ``cap_a`` count only in ``num_big``, as on the CPU
+    route); ``overflow`` = ``inexact`` = the slots past ``capacity``,
+    ``big_overflow`` 0. Any frame size: past 24,576 tiles (a 4K frame has
+    32,400) the count and emit passes keep their per-block tile histograms
+    in global memory instead of shared memory. Reads nothing to the host.
+    ``bin_fused_cuda.launches`` counts successful calls (six kernels each).
+
+    While a profiler collects it counts the slots kept
+    (``raster.slots_kept``) and the rect tiles tested
+    (``raster.slots_tested``: the sum of ``tiles_touched``), both device
+    scalars.
+    """
+    _check_cuda_inputs(prep, num_tiles, tiles_x)
+    n = prep.tiles_touched.shape[0]
+    dev = prep.mean2d.device
+    d_pad = dup_pad(capacity)
+    gsort, rank = depth_rank(prep)
+    qmax = support_qmax(prep.opacity)
+    ins = [prep.mean2d.contiguous(), prep.conic.contiguous(), qmax,
+           prep.rect_min.contiguous(), prep.rect_max.contiguous(),
+           prep.tiles_touched.contiguous(), rank, gsort]
+    grid = _visit_grid(dev.index, num_tiles, n)
+    i32 = dict(dtype=torch.int32, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    hist = torch.empty(grid * num_tiles, **i32)
+    total = torch.empty(num_tiles, **i32)
+    raw_start = torch.empty(num_tiles, **i64)
+    deep = torch.empty(num_tiles + 1, **i32)
+    stats = torch.empty(3, **i64)
+    keys = torch.empty(2 * (d_pad + n), **i32)
+    gid = torch.empty(d_pad, **i32)
+    counts_culled = torch.empty(n, **i32)
+    tile_start = torch.empty(num_tiles, **i32)
+    tile_count = torch.empty(num_tiles, **i32)
+    run, _ = _kernel_fns()
+    with torch.cuda.device(dev):
+        err = run(
+            *(x.data_ptr() for x in ins), n, tiles_x, num_tiles, d_pad, capacity, grid,
+            *(x.data_ptr() for x in (hist, total, raw_start, deep, stats, keys, gid,
+                                     counts_culled, tile_start, tile_count)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"binning kernel launch failed: CUDA error {err}")
+    bin_fused_cuda.launches += 1
+    if profiling.collecting():
+        profiling.count("raster.slots_kept", stats[0])
+        profiling.count("raster.slots_tested", prep.tiles_touched.sum(dtype=torch.int64))
+    return dict(
+        gid=gid,
+        tile_start=tile_start,
+        tile_count=tile_count,
+        counts_culled=counts_culled,
+        num_rendered=stats[0],
+        overflow=stats[1],
+        inexact=stats[1],
+        big_overflow=stats[2],
+        num_big=_num_big(prep, tile_cap, cap_a),
+    )
+
+
+bin_fused_cuda.launches = 0
+
+
+@torch.no_grad()  # the stop_gradient(prep) of the JAX package's render_fused
+@profiling.spanned("raster.binning")
+def bin_fused(
+    prep: Preprocessed,
+    num_tiles: int,
+    tiles_x: int,
+    tile_cap: int,
+    cap_a: int,
+    big_cap: int,
+    capacity: int,
+) -> dict:
+    """Support-culled binning. Carries no gradient (the support and order
+    decisions are not differentiable, as CUDA's rect is not). CUDA tensors
+    go through ``bin_fused_cuda`` (``big_cap`` unused, ``tile_cap`` and
+    ``cap_a`` only for ``num_big``), CPU tensors through
+    ``bin_fused_torch``.
+
+    Returns dict(gid (D_pad,), tile_start (T,), tile_count (T,),
+    counts_culled (N,), num_rendered (), overflow (), inexact (),
+    big_overflow (), num_big ()) where D_pad is the chunk-aligned capacity
+    plus one chunk and ``gid`` holds the sentinel n on invalid/padding
+    slots. ``inexact`` counts real dup slots dropped by big_cap/capacity
+    truncation; ``overflow`` adds the rect slots past ``tile_cap``.
+    """
+    if prep.mean2d.is_cuda:
+        return bin_fused_cuda(prep, num_tiles, tiles_x, tile_cap, cap_a, capacity)
+    if prep.mean2d.device.type == "cpu":
+        return bin_fused_torch(prep, num_tiles, tiles_x, tile_cap, cap_a, big_cap, capacity)
+    raise ValueError(f"no binning path for device {prep.mean2d.device}")
 
 
 def default_big_cap(n: int) -> int:
@@ -348,7 +551,8 @@ def render_fused(
 ) -> dict:
     """Production render: fused binning + dup gather + tile compositing.
 
-    Overflow of ``big_cap`` (see ``bin_and_gather``) is reported in
+    Overflow of ``tile_cap`` and ``big_cap`` (see ``bin_and_gather``),
+    which bound the CPU route of ``bin_fused`` only, is reported in
     ``big_overflow`` and ``bin_overflow`` and handled by
     ``raster.adaptive`` like every other capacity. Differentiable in
     ``prep``'s mean2d, conic, opacity and color (and ``settings.bg``);

@@ -3,8 +3,9 @@ trained-statistics 1M scene, or its random scene, at 512x512: the port of
 the JAX package's ``scripts/profile_trained.py``.
 
 Times, one line per stage (CUDA events, mean of ``ITERS`` calls after one
-warm-up): preprocess; the fused binning (``bin_fused``: expansion,
-exact-support culling, the sort, the tile ranges) with its dup count,
+warm-up): preprocess; the fused binning (``bin_fused``, on the card the
+kernels of ``csrc/binning.cu``: exact-support culling over every rect
+tile, the tile ranges, the per-tile depth order) with its dup count,
 deepest tile and the tiles deeper than 2,048 slots; pack + dup gather; the
 compositing kernel's forward (K1); the full forward and fwd+bwd
 (``render_fused``); the kernel's forward+backward alone (K1, K2, with the

@@ -175,7 +175,8 @@ def bench_rank(dev, capacity: int, width: int, res: int, samples: int) -> dict:
     """``run_ranks`` entry of the bench-scale section: the tile-sharded step
     on a (32 ranks) x ``width`` view and the coarse 'sdf' step, each at
     ``capacity`` slots holding the 512 points of seed 0 (SH 1), each run
-    once after a warm-up (``_timed``); every rank's K1-K3 launches."""
+    once after a warm-up (``_timed``); every rank's K1-K3 and binning
+    launches."""
     since = kernel_launches()
     pts, cols, g = _points()
     axis = world_axis()

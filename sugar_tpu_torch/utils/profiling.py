@@ -199,6 +199,11 @@ def spanned(name: str):
     return wrap
 
 
+def collecting() -> bool:
+    """Whether a profiler collects: spans and counters record only then."""
+    return _profiling()
+
+
 def count(name: str, value) -> None:
     """Record ``value`` (a host int or a device scalar, held unread until
     ``recorded()``) under ``name`` while a profiler collects."""

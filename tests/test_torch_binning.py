@@ -4,6 +4,10 @@ Both packages bin the SAME preprocessed Gaussians (the JAX preprocess
 output, carried over as numpy), so the comparison isolates binning:
 ``gid``, ``tile_start``, ``tile_count`` and ``counts_culled`` must be
 equal, and so must every counter.
+
+Beside the five cases, the plain version of the card's binning kernels
+(``bin_fused_plain``: no rect or bucket cap) is held to the JAX package's
+``bin_fused`` at covering caps on every case (``<case>:plain_vs_jax``).
 """
 
 import jax.numpy as jnp
@@ -34,6 +38,8 @@ CASES = {
 }
 ARRAYS = ["gid", "tile_start", "tile_count", "counts_culled"]
 COUNTERS = ["num_rendered", "overflow", "inexact", "big_overflow", "num_big"]
+PLAIN_VS_JAX = [f"{case}:plain_vs_jax" for case in CASES]
+COMPARED = list(CASES) + PLAIN_VS_JAX
 
 
 def _to_torch_prep(jprep) -> Preprocessed:
@@ -42,11 +48,12 @@ def _to_torch_prep(jprep) -> Preprocessed:
     })
 
 
-_cache = {}
+_inputs = {}
 
 
-def binned(case):
-    if case not in _cache:
+def inputs(case):
+    """(JAX prep, port prep, bin_fused's arguments after prep) of a case."""
+    if case not in _inputs:
         seed, h, w, tile_cap, cap_a, big_cap, capacity = CASES[case]
         means, scales, quats, opac, colors = make_scene(n=300, seed=seed)
         st = make_settings(h=h, w=w)
@@ -55,20 +62,39 @@ def binned(case):
             quaternions=jnp.asarray(quats), colors=jnp.asarray(colors),
         )
         args = (st.tiles_x * st.tiles_y, st.tiles_x, tile_cap, cap_a, big_cap, capacity)
-        jb = jfused.bin_fused(jprep, *args)
-        tb = tfused.bin_fused(_to_torch_prep(jprep), *args)
-        _cache[case] = (jb, tb)
+        _inputs[case] = (jprep, _to_torch_prep(jprep), args)
+    return _inputs[case]
+
+
+_cache = {}
+
+
+def binned(case):
+    """(want, got) of a compared name: the JAX package and the torch route
+    on a case; the JAX package at covering caps and the plain version of
+    the kernels (``:plain_vs_jax``)."""
+    if case not in _cache:
+        base, _, plain = case.partition(":")
+        jprep, tprep, args = inputs(base)
+        if not plain:
+            _cache[case] = (jfused.bin_fused(jprep, *args), tfused.bin_fused(tprep, *args))
+        else:
+            num_tiles, tiles_x, tile_cap, cap_a, _big_cap, capacity = args
+            n = tprep.tiles_touched.shape[0]
+            covering = (num_tiles, tiles_x, int(tprep.tiles_touched.max()), cap_a, n, capacity)
+            got = tfused.bin_fused_plain(tprep, num_tiles, tiles_x, tile_cap, cap_a, capacity)
+            _cache[case] = (jfused.bin_fused(jprep, *covering), got)
     return _cache[case]
 
 
 @pytest.mark.parametrize("key", ARRAYS)
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", COMPARED)
 def test_bin_fused_arrays_bit_equal(case, key):
     jb, tb = binned(case)
     np.testing.assert_array_equal(tb[key].numpy(), np.asarray(jb[key]), err_msg=f"{case}/{key}")
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", COMPARED)
 def test_bin_fused_counters_equal(case):
     jb, tb = binned(case)
     got = {k: int(tb[k]) for k in COUNTERS}
@@ -83,6 +109,32 @@ def test_cases_exercise_what_they_name():
     tb = binned("rect_overflow")[1]
     assert int(tb["overflow"]) > int(tb["inexact"])
     assert int(binned("capacity")[1]["inexact"]) > 0
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_drops_only_past_the_capacity(case):
+    """The kernels' plain version has no rect or bucket cap: overflow =
+    inexact = the slots past the capacity, big_overflow 0."""
+    _, tprep, (num_tiles, tiles_x, tile_cap, cap_a, _big_cap, capacity) = inputs(case)
+    got = binned(f"{case}:plain_vs_jax")[1]
+    past = max(int(got["num_rendered"]) - capacity, 0)
+    assert (int(got["overflow"]), int(got["inexact"]), int(got["big_overflow"])) == (past, past, 0)
+    n = tprep.tiles_touched.shape[0]
+    assert int(got["num_rendered"]) == int(got["counts_culled"].sum())
+    assert got["gid"].shape == (tfused.dup_pad(capacity),)
+    assert int((got["gid"] < n).sum()) == min(int(got["num_rendered"]), tfused.dup_pad(capacity))
+
+
+def test_plain_truncates_at_d_pad():
+    """The capacity case: the plain version keeps the tile-major head of
+    its slots up to D_pad, tile_start and tile_count clipped there."""
+    got = binned("capacity:plain_vs_jax")[1]
+    d_pad = tfused.dup_pad(CASES["capacity"][-1])
+    start, count = got["tile_start"].to(torch.int64), got["tile_count"].to(torch.int64)
+    assert int(got["num_rendered"]) > d_pad
+    assert int(count.sum()) == d_pad
+    assert int((start + count).max()) == d_pad
+    assert bool((start[1:] == start[:-1] + count[:-1]).all())
 
 
 def test_slot_tiles_wide_rects_bit_equal():
