@@ -211,7 +211,7 @@ together), then:
    when every check passed.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after: (K1, K2, K3, binning), the last one launch of
+just after: (K1, K2, K3, binning, preprocess), the last one launch of
 ``bin_fused_cuda`` a fused render, checked against the path's renders. It exits non-zero, printing no result, without a CUDA card.
 """
 
@@ -263,6 +263,7 @@ from sugar_tpu_torch.models.compositor import GaussianSet, composite_render
 from sugar_tpu_torch.models.densifier import DensifyStats, prune_low_opacity, update_stats
 from sugar_tpu_torch.models import gaussians as gm_mod
 from sugar_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianParams, load_ply, save_ply
+from sugar_tpu_torch.models import render as render_mod
 from sugar_tpu_torch.models.render import render_model, render_params
 from sugar_tpu_torch.pipeline import (
     PipelineConfig,
@@ -291,6 +292,7 @@ from sugar_tpu_torch.raster import adaptive
 from sugar_tpu_torch.raster import api as raster_api
 from sugar_tpu_torch.raster import common as rc
 from sugar_tpu_torch.raster import fused as fused_mod
+from sugar_tpu_torch.raster import preprocess as preprocess_mod
 from sugar_tpu_torch.raster import segsum as segsum_mod
 from sugar_tpu_torch.raster import tile_composite as tc_mod
 from sugar_tpu_torch.raster.api import rasterize_gaussians
@@ -355,14 +357,18 @@ from sugar_tpu_torch.trainers.coarse import CoarseConfig, make_coarse_step, trai
 from sugar_tpu_torch.trainers.schedule import iteration_generator
 from sugar_tpu_torch.trainers.vanilla import TrainConfig, make_train_step, train_vanilla_3dgs
 from sugar_tpu_torch.utils import checkpoint as ckpt
+from sugar_tpu_torch.utils import profiling
 from sugar_tpu_torch.utils.losses import psnr, rgb_loss_l1_dssim
 from sugar_tpu_torch.utils.profiling import card_line, cuda_ms
 
-# The counted wrappers: K1, K2, K3 and the binning kernels (one launch of
+# The counted wrappers: K1, K2, K3, the binning kernels (one launch of
 # ``bin_fused_cuda``, six kernels, a ``bin_fused`` call on the card: one a
-# fused render, none on the two-pass, tiled and tile-sharded paths).
+# fused render, none on the two-pass, tiled and tile-sharded paths) and the
+# preprocess kernel (``preprocess_fields_cuda``: one a ``render_model`` or
+# ``render_params`` call on the card that needs no gradient, whatever the
+# mode; none in a render under grad or through ``rasterize_gaussians``).
 KERNELS = (tile_composite_cuda, tile_composite_bwd_cuda, segment_sum_cuda,
-           fused_mod.bin_fused_cuda)
+           fused_mod.bin_fused_cuda, preprocess_mod.preprocess_fields_cuda)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "sugar_tpu_torch", "_build", "smoke")
@@ -893,8 +899,8 @@ def reset_launches() -> None:
         k.launches = 0
 
 
-def launches() -> tuple[int, int, int, int]:
-    """(K1, K2, K3, binning) launches since the last reset."""
+def launches() -> tuple[int, int, int, int, int]:
+    """(K1, K2, K3, binning, preprocess) launches since the last reset."""
     return tuple(k.launches for k in KERNELS)
 
 
@@ -1062,14 +1068,18 @@ def timed_run(check, tag: str, label: str, fn, keep: int = 1, guard=contextlib.n
 
 def timed_entry(check, tag: str, name: str, fn, want, guard=contextlib.nullcontext):
     """timed_run of an entry point: ``want`` is the expected (K1, K2, K3,
-    binning) launches, or None for K1 launched, no K2 or K3, and one
-    binning a K1 (fused renders). Returns (fn's result, wall s, launches,
-    max abs error per kernel)."""
+    binning, preprocess) launches; None for fused renders of a model that
+    need no gradient (K1 launched, no K2 or K3, one binning and one
+    preprocess a K1); or a (predicate of the launches, its description)
+    pair. Returns (fn's result, wall s, launches, max abs error per
+    kernel)."""
     r, st, _ = timed_run(check, tag, name, fn, guard=guard)
     got = st["launches"]
-    ok = (got == want if want is not None
-          else got[0] > 0 and got[1:3] == (0, 0) and got[3] == got[0])
-    check(ok, f"{name}: launches (K1, K2, K3, binning) {want or '(> 0, 0, 0, = K1)'} (got {got})")
+    if want is None:
+        want = (lambda g: g[0] > 0 and g[1:3] == (0, 0) and g[3] == g[4] == g[0],
+                "(> 0, 0, 0, = K1, = K1)")
+    ok, text = (want[0](got), want[1]) if callable(want[0]) else (got == want, str(want))
+    check(ok, f"{name}: launches (K1, K2, K3, binning, preprocess) {text} (got {got})")
     return r, st["wall_s"], got, st["errs"]
 
 
@@ -1275,7 +1285,8 @@ def benchmark_binning_inputs(dev):
     of each benchmark configuration at its cells' caps (the view as the
     cell renders it, recorded at its bin_fused call): vanilla_7k's first
     training view, refined_highpoly's first orbit_far and orbit_near
-    views, served."""
+    views, served. Also label -> (args, kwargs) of the same renders'
+    ``preprocess_fields`` calls, for [2c]."""
     from benchmark import scenes as bscenes
     from benchmark.models import free_gaussians as fg
     from benchmark.models import refined_mesh as rm
@@ -1284,7 +1295,7 @@ def benchmark_binning_inputs(dev):
         with open(os.path.join(ROOT, "benchmark", kind, f"{name}.json")) as f:
             return json.load(f)
 
-    rec = []
+    rec, pre_rec = [], []
 
     def recording(orig):
         def run(prep, *args):
@@ -1292,8 +1303,16 @@ def benchmark_binning_inputs(dev):
             return orig(prep, *args)
         return run
 
-    out = {}
-    with torch.no_grad(), swapped(fused_mod, "bin_fused", recording(fused_mod.bin_fused)):
+    def recording_fields(orig):
+        def run(*args, **kwargs):
+            pre_rec.append((args, kwargs))
+            return orig(*args, **kwargs)
+        return run
+
+    out, pre = {}, {}
+    with torch.no_grad(), swapped(fused_mod, "bin_fused", recording(fused_mod.bin_fused)), \
+            swapped(render_mod, "preprocess_fields",
+                    recording_fields(render_mod.preprocess_fields)):
         vcfg = cfg("configs", "vanilla_7k")
         inp = fg.build(vcfg, BIN_SEED, dev, role="serve")
         cap = inp["params"]["xyz"].shape[0]
@@ -1303,6 +1322,7 @@ def benchmark_binning_inputs(dev):
                       torch.zeros(3, device=dev), dup_capacity=tc.dup_capacity_mult * cap,
                       k_max=tc.k_max, tile_cap=cfg("traffic", "train_from_7k")["tile_cap"])
         out["vanilla_7k view 0"] = rec.pop()
+        pre["vanilla_7k view 0"] = pre_rec.pop()
         del inp, params
         rcfg = cfg("configs", "refined_highpoly")
         server = rm.Server(rm.build(rcfg, BIN_SEED, dev, role="serve"))
@@ -1310,8 +1330,9 @@ def benchmark_binning_inputs(dev):
             view = bscenes.orbit_views(rcfg, cfg("traffic", traffic))[0].to(dev)
             server.render(view)
             out[f"refined_highpoly {traffic} view 0"] = rec.pop()
+            pre[f"refined_highpoly {traffic} view 0"] = pre_rec.pop()
         del server
-    return out
+    return out, pre
 
 
 def binning_differs(a: dict, b: dict) -> list[str]:
@@ -1403,7 +1424,8 @@ def phase_binning(check, dev) -> dict:
     inputs, a large frame and the benchmark's first views, then their time
     on the last two. Returns dict(rows (time_binning's), max_abs_err (the
     largest gap to the plain version over every output, -1 where a shape
-    differs))."""
+    differs), fields (the benchmark views' preprocess_fields arguments, for
+    [2c]))."""
     t0 = time.perf_counter()
     rows, errs = [], []
     for label, (prep, args) in binning_inputs(dev).items():
@@ -1424,14 +1446,220 @@ def phase_binning(check, dev) -> dict:
                   f"global memory) and slots to bin")
             rows.append(time_binning(label, prep, args, r["kern"]))
         del r
-    for label, (prep, args) in benchmark_binning_inputs(dev).items():
+    bench_bins, bench_fields = benchmark_binning_inputs(dev)
+    for label, (prep, args) in bench_bins.items():
         r = check_binning(check, label, prep, args)
         errs.append(r["max_abs_err"])
         rows.append(time_binning(label, prep, args, r["kern"]))
         del r
         torch.cuda.empty_cache()
+    del bench_bins
     print(f"[2b] binning phase: {time.perf_counter() - t0:.1f} s")
-    return dict(rows=rows, max_abs_err=max(errs, key=lambda e: (e < 0, e)))
+    return dict(rows=rows, max_abs_err=max(errs, key=lambda e: (e < 0, e)),
+                fields=bench_fields)
+
+
+# [2c] the preprocess kernel (csrc/preprocess.cu) against its plain version
+# on the benchmark's first views. Floats: within PRE_TOL absolute or
+# PRE_TOL relative (the kernel sums the view and projection products left
+# to right where torch's GEMM may round otherwise; the rest is the same
+# float32 operations in the same order). Integers (radius, rect_min,
+# rect_max): equal, but for Gaussians whose plain value before rounding
+# (3 sqrt(max(lambda_max, 0)) for the radius's ceil, the four rect
+# quotients for their truncations) lies within PRE_NEAR, relative, of an
+# integer; there each may differ by one (a radius that rounds the other
+# way moves the rect with it; a rect that collapses zeroes tiles_touched
+# and so the radius). tiles_touched is equal where the rect is, and is
+# the product of the kernel's own rect where it differs.
+PRE_TOL = 1e-5
+PRE_NEAR = 1e-5
+PRE_FLOATS = ("mean2d", "depth", "conic", "opacity", "color")
+PRE_REPS = 20
+
+
+PRE_SMALL_N = 1001  # not a multiple of the kernel's 128-Gaussian blocks
+# name -> (model SH degree, active degree, colour width or None, dead
+# slots and an ndc_offset, fields 4 bytes past 16-byte alignment)
+PRE_SMALL = {
+    "sh0": (0, 0, None, True, False), "sh1": (1, 1, None, True, False),
+    "sh2": (2, 2, None, False, False), "sh3": (3, 3, None, True, False),
+    "sh4": (4, 4, None, True, False), "sh1_of_3": (3, 1, None, True, False),
+    "colors1": (3, 3, 1, True, False), "colors8": (3, 3, 8, False, False),
+    "sh3_unaligned": (3, 3, None, True, True),
+}
+
+
+def preprocess_small_inputs(dev) -> dict:
+    """label -> (preprocess_fields' arguments, keyword arguments) of small
+    scenes on the card covering the kernel's options: every SH degree,
+    a lower active degree, colour overrides, dead slots and an
+    ndc_offset, fields that start off 16-byte alignment; an eighth of the
+    Gaussians behind the camera, an eighth far outside the frustum."""
+    out = {}
+    for name, (deg, active, ch, dead, unaligned) in PRE_SMALL.items():
+        g = np.random.default_rng(41)
+        n = PRE_SMALL_N
+        xyz = np.stack([g.uniform(-1.2, 1.2, n), g.uniform(-1.2, 1.2, n),
+                        g.uniform(1.0, 6.0, n)], -1)
+        xyz[: n // 8, 2] = g.uniform(-2.0, -0.3, n // 8)
+        xyz[n // 8: n // 4, 0] = g.choice([-1, 1], n // 8) * g.uniform(20.0, 60.0, n // 8)
+        k = (deg + 1) ** 2
+        d = dict(xyz=xyz, opacity_logit=g.normal(0, 2.0, n),
+                 log_scales=g.uniform(np.log(0.02), np.log(0.3), (n, 3)),
+                 quaternions=g.normal(size=(n, 4)) * g.uniform(0.3, 3.0, (n, 1)),
+                 sh_dc=g.normal(0, 0.8, (n, 3)), sh_rest=g.normal(0, 0.3, (n, 3, k - 1)))
+
+        def put(x):
+            x = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+            if not unaligned:
+                return x
+            buf = torch.empty(x.numel() + 1, dtype=torch.float32, device=dev)
+            buf[1:] = x.reshape(-1)
+            return buf[1:].view(x.shape)
+
+        t = {f: put(v) for f, v in d.items()}
+        cam = make_camera(R=np.array([[0.995, 0.0, 0.0998], [0.0, 1.0, 0.0],
+                                      [-0.0998, 0.0, 0.995]]),
+                          T=np.array([0.05, -0.1, 0.2]), fov_x=1.2, fov_y=1.0, height=96,
+                          width=128, device=dev)
+        st = dataclasses.replace(rc.from_camera(cam, device=dev), sh_degree=active)
+        kw = dict(alive_mask=torch.as_tensor(g.uniform(size=n) > 0.15, device=dev) if dead
+                  else None,
+                  colors=put(g.uniform(0, 1, (n, ch))) if ch else None,
+                  ndc_offset=put(g.normal(0, 0.01, (n, 2))) if dead else None)
+        out[f"small {name}"] = ((t["xyz"], t["opacity_logit"], t["log_scales"],
+                                 t["quaternions"], t["sh_dc"], t["sh_rest"], st), kw)
+    return out
+
+
+def plain_rounding_values(args, plain):
+    """(v_radius (N,), v_rect (N, 4)): the plain route's values before its
+    ceil and its truncations, with ``preprocess``'s torch ops."""
+    xyz, _, log_scales, quaternions, _, _, st = args
+    cov = preprocess_mod._cov3d_channels(torch.exp(log_scales),
+                                         preprocess_mod.quat_normalize(quaternions),
+                                         st.scale_modifier)
+    cxx, cxy, cyy = preprocess_mod.compute_cov2d(
+        xyz, cov, st.viewmatrix, st.focal_x, st.focal_y, st.tanfovx, st.tanfovy).unbind(-1)
+    det = cxx * cyy - cxy * cxy
+    mid = 0.5 * (cxx + cyy)
+    lam = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    v_r = rc.RADIUS_SIGMA * torch.sqrt(torch.clamp(lam, min=0.0))
+    r = torch.ceil(v_r)
+    mx, my = plain.mean2d.unbind(-1)
+    v_rect = torch.stack([(mx - r) / rc.TILE_X, (my - r) / rc.TILE_Y,
+                          (mx + r + rc.TILE_X - 1) / rc.TILE_X,
+                          (my + r + rc.TILE_Y - 1) / rc.TILE_Y], -1)
+    return v_r, v_rect
+
+
+def compare_preprocess(kern, plain, v_r, v_rect) -> dict:
+    """The floats' largest gaps and how many lie beyond PRE_TOL; the
+    Gaussians whose integers differ, admitted (near an integer, by one)
+    or not."""
+    d = {}
+    for f in PRE_FLOATS:
+        a, b = getattr(kern, f), getattr(plain, f)
+        gap = (a - b).abs()
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        ok = same | (gap <= PRE_TOL) | (gap <= PRE_TOL * b.abs())
+        fin = torch.where(same, 0.0, gap)
+        d[f] = dict(max_abs=float(fin.max()),
+                    max_rel=float((fin / b.abs().clamp(min=1e-30)).max()),
+                    beyond=int((~ok).sum()))
+    ki = torch.cat([kern.radius[:, None], kern.rect_min, kern.rect_max], 1).to(torch.int64)
+    pi = torch.cat([plain.radius[:, None], plain.rect_min, plain.rect_max], 1).to(torch.int64)
+    diff = (ki - pi).abs()
+    differs = (diff > 0).any(1) | (kern.tiles_touched != plain.tiles_touched)
+
+    def near(v):
+        return (v - torch.round(v)).abs() <= PRE_NEAR * v.abs().clamp(min=1.0)
+
+    by_one = (diff[:, 1:] <= 1).all(1) & ((diff[:, 0] <= 1) | (kern.radius == 0)
+                                          | (plain.radius == 0))
+    own = (kern.rect_max - kern.rect_min).to(torch.int64).prod(1)
+    consistent = (kern.tiles_touched == 0) | (kern.tiles_touched.to(torch.int64) == own)
+    admitted = differs & (near(v_r) | near(v_rect).any(1)) & by_one & consistent
+    d["int_differs"] = int(differs.sum())
+    d["int_admitted"] = int(admitted.sum())
+    d["int_bad"] = int((differs & ~admitted).sum())
+    return d
+
+
+def preprocess_bytes(args, kw, prep) -> int:
+    """Bytes the kernel needs to move once: each field it reads (at the
+    active SH degree), each output written."""
+    xyz, logit, log_scales, quats, dc, rest, st = args
+    n = xyz.shape[0]
+    colors = kw.get("colors")
+    seg = (st.sh_degree + 1) ** 2 - 1
+    read = n * (12 + 4 + 12 + 16) + (colors.numel() * 4 if colors is not None
+                                     else n * (12 + 12 * seg))
+    read += n if kw.get("alive_mask") is not None else 0
+    read += 8 * n if kw.get("ndc_offset") is not None else 0
+    wrote = sum(getattr(prep, f.name).numel() * 4 for f in dataclasses.fields(prep))
+    return read + wrote
+
+
+def phase_preprocess(check, dev, inputs: dict) -> dict:
+    """[2c]: ``preprocess_fields`` on the card (the torch route refused,
+    under ``set_sync_debug_mode("error")``) against
+    ``preprocess_fields_plain`` on small scenes of every option and on the
+    benchmark's first views, twice bit-identical, one launch a call; its
+    time beside the plain version's and the bytes bound. Returns
+    dict(rows, max_abs_err (the largest float gap))."""
+    t0 = time.perf_counter()
+    rows, errs = [], []
+
+    def refuse(*a, **k):
+        raise AssertionError("preprocess_fields took the torch route on CUDA tensors")
+
+    for label, (args, kw) in (preprocess_small_inputs(dev) | inputs).items():
+        l0 = preprocess_mod.preprocess_fields_cuda.launches
+        with torch.no_grad():
+            with swapped(preprocess_mod, "preprocess_fields_plain", refuse):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    kern = preprocess_mod.preprocess_fields(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                again = preprocess_mod.preprocess_fields(*args, **kw)
+            torch.cuda.synchronize()
+            launches_ = preprocess_mod.preprocess_fields_cuda.launches - l0
+            plain = preprocess_mod.preprocess_fields_plain(*args, **kw)
+            v_r, v_rect = plain_rounding_values(args, plain)
+            d = compare_preprocess(kern, plain, v_r, v_rect)
+            fields = [f.name for f in dataclasses.fields(kern)]
+            rep = [f for f in fields if not torch.equal(getattr(kern, f), getattr(again, f))]
+            shapes = [f for f in fields if getattr(kern, f).shape != getattr(plain, f).shape
+                      or getattr(kern, f).dtype != getattr(plain, f).dtype]
+            ms = cuda_ms(lambda: preprocess_mod.preprocess_fields_cuda(*args, **kw), PRE_REPS)
+            plain_ms = cuda_ms(lambda: preprocess_mod.preprocess_fields_plain(*args, **kw), 3)
+        bound_ms = preprocess_bytes(args, kw, kern) / PEAK_BYTES_PER_S * 1e3
+        n = args[0].shape[0]
+        row = dict(label=label, n=n, sh_degree=args[6].sh_degree,
+                   visible=int((plain.tiles_touched > 0).sum()), launches=launches_,
+                   differ_again=rep, shape_or_dtype_differs=shapes, ms=round(ms, 4),
+                   bound_ms=round(bound_ms, 4), share_of_bound=round(bound_ms / ms, 4),
+                   plain_ms=round(plain_ms, 4), **d)
+        print(f"[2c] preprocess, {label}: {json.dumps(row)}")
+        floats_ok = all(d[f]["beyond"] == 0 for f in PRE_FLOATS)
+        check(floats_ok, f"[2c] preprocess kernel floats within {PRE_TOL} absolute or relative "
+                         f"of the plain version, {label}")
+        check(d["int_bad"] == 0 and not shapes, f"[2c] preprocess kernel radius, rects and "
+              f"tiles_touched equal the plain version's but for {d['int_admitted']} admitted "
+              f"differences of one near an integer, {label}")
+        check(not rep, f"[2c] preprocess kernel gives bit-identical outputs twice, {label}")
+        check(launches_ == 2, f"[2c] preprocess_fields on the card launched the kernel once a "
+                              f"call, no sync, {label}")
+        check(d["int_differs"] * 1000 < max(1, row["visible"]),
+              f"[2c] fewer than one in a thousand visible Gaussians differ in an integer, {label}")
+        rows.append(row)
+        errs.append(max(d[f]["max_abs"] for f in PRE_FLOATS))
+        del kern, again, plain, v_r, v_rect
+        torch.cuda.empty_cache()
+    print(f"[2c] preprocess phase: {time.perf_counter() - t0:.1f} s")
+    return dict(rows=rows, max_abs_err=max(errs))
 
 
 def check_k2(check, fwd: CompositeOut, args, g_img, gt_total, label: str, tag: str = "[3]",
@@ -1642,10 +1870,11 @@ def phase_card_vs_cpu(check, dev) -> None:
         scale = float(g_cpu[k].abs().max())
         rows[k] = (float((g_card[k] - g_cpu[k]).abs().max()), scale)
     print(f"[5] card vs CPU, 200-Gaussian SH-3 scene at 48x64: loss {loss_card:.7f} / "
-          f"{loss_cpu:.7f}; launches (K1, K2, K3, binning) {counts}")
+          f"{loss_cpu:.7f}; launches (K1, K2, K3, binning, preprocess) {counts}")
     for k, (err, scale) in rows.items():
         print(f"    d {k}: max abs diff {err:.3e}, max|g| {scale:.3e}")
-    check(counts == (1, 1, 1, 1), "card run launched K1, K2, K3 and the binning once each")
+    check(counts == (1, 1, 1, 1, 0), "card run launched K1, K2, K3 and the binning once each, "
+          "no preprocess kernel (the render needs its gradient)")
     check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu), "card loss equals the CPU loss")
     check(all(err <= CARD_CPU_RTOL * scale + 1e-9 and scale > 0 for err, scale in rows.values()),
           f"card gradients within {CARD_CPU_RTOL} x max|g| of the CPU's")
@@ -1671,8 +1900,8 @@ def phase_fwd_bwd(check, dev, settings) -> dict:
     counts = launches()
     ovf = adaptive.read_overflow(out)
     print(f"[6] fwd+bwd, 1M trained scene, 512x512: overflow {json.dumps(ovf)}; "
-          f"launches (K1, K2, K3, binning) {counts}")
-    check(counts == (1, 1, 1, 1), "fwd+bwd launched K1, K2, K3 and the binning once each")
+          f"launches (K1, K2, K3, binning, preprocess) {counts}")
+    check(counts == (1, 1, 1, 1, 0), "fwd+bwd launched K1, K2, K3 and the binning once each")
     check(all(ovf[k] == 0 for k in ("bin_overflow", "big_overflow", "cap_overflow",
                                     "tile_overflow")), "fwd+bwd overflow counters all 0")
     check(all(bool(torch.isfinite(x).all()) for x in g) and float(g[0].abs().max()) > 0,
@@ -1716,7 +1945,7 @@ def phase_train(check, dev, cams) -> dict:
     grows = [r for r in logs if r.get("event") == "cap_grow"]
     losses = [r["loss"] for r in steps]
     print(f"[7] training: {TRAIN_ITERS} iterations, {TRAIN_N} Gaussians in {TRAIN_CAPACITY} "
-          f"slots, {wall:.2f} s wall; launches (K1, K2, K3, binning) {counts}")
+          f"slots, {wall:.2f} s wall; launches (K1, K2, K3, binning, preprocess) {counts}")
     print(f"    losses: {', '.join(f'{x:.5f}' for x in losses)}")
     for r in dens_events + resets + grows:
         print(f"    {json.dumps(r)}")
@@ -1725,7 +1954,7 @@ def phase_train(check, dev, cams) -> dict:
                                               "tile_overflow"))]
     print(f"    iterations with an overflow counter > 0: {ovf_steps}; n_alive at the end "
           f"{int(state.model.alive.sum())}")
-    check(counts == (TRAIN_ITERS,) * 4,
+    check(counts == (TRAIN_ITERS,) * 4 + (0,),
           "training: one K1 and one binning launch per render, one K2 and K3 launch per backward")
     check(len(losses) == TRAIN_ITERS and all(math.isfinite(x) for x in losses),
           "training: every loss finite")
@@ -1766,7 +1995,7 @@ def phase_train(check, dev, cams) -> dict:
     ovf_any = [adaptive.read_overflow(a) for a in auxes]
     zero = all(not adaptive.overflowed(o) and o.get("big_overflow", 0) == 0 for o in ovf_any)
     check(zero, "timed train steps: overflow counters all 0")
-    check(timed_counts == (TIMED_STEPS,) * 4,
+    check(timed_counts == (TIMED_STEPS,) * 4 + (0,),
           "timed train steps: one launch of each kernel per step")
     wall_ms, busy_ms, ranked = profile_device(
         lambda: step(params, alive_t, adam, stats, cams[0], targets[0], TRAIN_ITERS), top=None)
@@ -2051,7 +2280,7 @@ def phase_coarse(check, dev, cams, targets) -> dict:
     steps = [r for r in logs if "loss" in r]
     knn_builds = [r["iter"] for r in logs if r.get("event") == "knn"]
     grows = [r for r in logs if r.get("event") == "cap_grow"]
-    deltas, prev = {}, (0, 0, 0, 0)
+    deltas, prev = {}, (0,) * 5
     for it, c in per_iter:
         deltas[it] = tuple(a - b for a, b in zip(c, prev))
         prev = c
@@ -2062,7 +2291,7 @@ def phase_coarse(check, dev, cams, targets) -> dict:
           f"{[(r['new']['k_max'], r['new']['tile_cap'], r['new']['dup_capacity']) for r in grows]}")
     for r in steps:
         print(f"    iter {r['iter']}: loss {r['loss']:.6f}, psnr {r['psnr']:.3f}, n_alive "
-              f"{r['n_alive']}, launches (K1, K2, K3, binning) {deltas[r['iter']]}, overflow "
+              f"{r['n_alive']}, launches (K1, K2, K3, binning, preprocess) {deltas[r['iter']]}, overflow "
               f"{[r.get(k, 0) for k in ('bin_overflow', 'big_overflow', 'cap_overflow', 'tile_overflow')]}")
     n_alive = {r["iter"]: r["n_alive"] for r in steps}
     check(len(steps) == COARSE_END - COARSE_START and all(math.isfinite(r["loss"]) for r in steps),
@@ -2071,7 +2300,7 @@ def phase_coarse(check, dev, cams, targets) -> dict:
           "coarse: n_alive drops at the prune (iteration 9000)")
     check(knn_builds == [COARSE_START + 1, COARSE_MILESTONE, COARSE_MILESTONE],
           "coarse: three KNN builds (first step, the 9000 refresh, after the prune)")
-    want = {it: (1,) * 4 if it <= COARSE_MILESTONE else (2,) * 4 for it in deltas}
+    want = {it: (1,) * 4 + (0,) if it <= COARSE_MILESTONE else (2,) * 4 + (0,) for it in deltas}
     check(deltas == want, "coarse: one launch of K1, K2, K3 and the binning per iteration through "
           "9000, two after")
     # Each new view may overflow once (a lagged growth follows); after the
@@ -2130,11 +2359,11 @@ def phase_coarse(check, dev, cams, targets) -> dict:
     reset_launches()
     dense = train_coarse(out, cams, targets, extent, dcfg, seed=0, log_fn=dlog)
     torch.cuda.synchronize()
-    dd = [tuple(a - b for a, b in zip(c, p)) for c, p in zip(dper, [(0,) * 4] + dper[:-1])]
+    dd = [tuple(a - b for a, b in zip(c, p)) for c, p in zip(dper, [(0,) * 5] + dper[:-1])]
     dsteps = [r for r in dlogs if "loss" in r]
     print(f"[9] train_coarse 'density', {DENSITY_STEPS} SDF-phase steps: losses "
           f"{[round(r['loss'], 6) for r in dsteps]}; launches per step {dd}")
-    check(dd == [(1, 1, 1, 1)] * DENSITY_STEPS and all(math.isfinite(r["loss"]) for r in dsteps)
+    check(dd == [(1, 1, 1, 1, 0)] * DENSITY_STEPS and all(math.isfinite(r["loss"]) for r in dsteps)
           and all(bool(torch.isfinite(getattr(dense.params, f)).all()) for f in PARAM_FIELDS),
           "coarse 'density': one launch of each kernel per step (no depth render), finite")
     return dict(model=out, extent=extent, cfg=cfg, wall_s=wall, resume_s=resume_wall)
@@ -2179,7 +2408,7 @@ def time_coarse_step(check, dev, cams, targets, state) -> dict:
     step_ms = [a.elapsed_time(b) for a, b in ms]
     peak = torch.cuda.max_memory_allocated() - base
     counts = launches()
-    check(counts == (2 * TIMED_STEPS,) * 4, "timed 'sdf' steps: two launches of each kernel per step")
+    check(counts == (2 * TIMED_STEPS,) * 4 + (0,), "timed 'sdf' steps: two launches of each kernel per step")
     check(all(not adaptive.overflowed(adaptive.read_overflow(a)) for a in auxes)
           and all(math.isfinite(float(a["loss"])) for a in auxes),
           "timed 'sdf' steps: overflow 0, losses finite")
@@ -2234,7 +2463,7 @@ def time_coarse_step(check, dev, cams, targets, state) -> dict:
     print(f"[9] coarse 'sdf' step at full width ({TRAIN_CAPACITY} slots, "
           f"{int(alive.sum())} alive, {n} samples x 16 neighbors): median "
           f"{statistics.median(step_ms):.3f} ms of {TIMED_STEPS} "
-          f"({', '.join(f'{v:.3f}' for v in step_ms)}); launches (K1, K2, K3, binning) {counts} over "
+          f"({', '.join(f'{v:.3f}' for v in step_ms)}); launches (K1, K2, K3, binning, preprocess) {counts} over "
           f"{TIMED_STEPS} steps; peak memory above the state {peak / 1e9:.3f} GB; caps {caps}")
     print(f"    under torch.profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle "
           f"share {1.0 - busy_ms / wall_ms:.3f}; {len(ranked)} distinct kernels, "
@@ -2378,8 +2607,8 @@ def phase_levelset_card_vs_cpu(check, dev) -> None:
                points_max_abs=float(torch.where(both, dp, 0.0).max()),
                normals_max_abs=float(torch.where(both, dn, 0.0).max()))
     print(f"[10] level set card vs CPU, 200-Gaussian sphere at {LEVELSET_HW}x{LEVELSET_HW}: "
-          f"{json.dumps(row)}; launches (K1, K2, K3, binning) {counts}")
-    check(counts == (1, 0, 0, 1), "level set on the card: one K1 and one binning launch, no "
+          f"{json.dumps(row)}; launches (K1, K2, K3, binning, preprocess) {counts}")
+    check(counts == (1, 0, 0, 1, 0), "level set on the card: one K1 and one binning launch, no "
           "backward")
     check(mask_diff <= LEVELSET_SHARE * pixels and off <= LEVELSET_SHARE * pixels
           and row["valid_card"] > 500,
@@ -2444,7 +2673,7 @@ def phase_extract(check, dev, coarse_model, cams) -> dict:
           f"{cfg.poisson_resolution}, decimation_target {cfg.decimation_target}, dup_capacity "
           f"{cfg.dup_capacity}, k_max {cfg.k_max}), {n_alive} Gaussians after the prune in "
           f"{coarse_model.capacity} slots, {len(cams)} cameras at {H}x{W}: {wall:.2f} s wall; "
-          f"launches (K1, K2, K3, binning) {counts}")
+          f"launches (K1, K2, K3, binning, preprocess) {counts}")
     cam_ms, overflowing = [], []
     for i, c in enumerate(ls_calls):
         whole = c["events"][0].elapsed_time(c["events"][1])
@@ -2496,8 +2725,8 @@ def phase_extract(check, dev, coarse_model, cams) -> dict:
                  depth_max_abs=float(both_depth.max()))
     print(f"    camera {worst} at k_max {k_full} (covers its deepest tile): {json.dumps(grown)}")
     del fixed, full
-    check(len(ls_calls) == len(cams) and all(c["launches"] == (1, 0, 0, 1) for c in ls_calls)
-          and counts == (len(cams), 0, 0, len(cams)), "mesh extraction: one K1 and one binning "
+    check(len(ls_calls) == len(cams) and all(c["launches"] == (1, 0, 0, 1, 0) for c in ls_calls)
+          and counts == (len(cams), 0, 0, len(cams), 0), "mesh extraction: one K1 and one binning "
           "launch per level-set camera, no K2 or K3")
     check(all(c["valid"] >= 1000 for c in ls_calls), "level set: every camera finds >= 1000 points")
     radius = np.linalg.norm(verts - np.array([0.0, 0.0, 3.2], np.float32), axis=1)
@@ -2591,9 +2820,9 @@ def phase_refine_card_vs_cpu(check, dev) -> None:
     err, scale = float((g_card - g_cpu).abs().max()), float(g_cpu.abs().max())
     print(f"[11] refine step card vs CPU, {len(faces)}-face sphere, 3 Gaussians per triangle, SH 3, "
           f"{REFINE_HW}x{REFINE_HW}: loss {loss_card:.7f} / {loss_cpu:.7f}; vertex gradient max abs "
-          f"diff {err:.3e}, max|g| {scale:.3e}; launches (K1, K2, K3, binning) {counts}; overflow "
+          f"diff {err:.3e}, max|g| {scale:.3e}; launches (K1, K2, K3, binning, preprocess) {counts}; overflow "
           f"{json.dumps(adaptive.read_overflow(aux))}")
-    check(counts == (1, 1, 1, 1), "refine step on the card: K1, K2, K3 and the binning once each")
+    check(counts == (1, 1, 1, 1, 0), "refine step on the card: K1, K2, K3 and the binning once each")
     check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu) and scale > 0
           and err <= CARD_CPU_RTOL * scale,
           f"refine step: loss and vertex gradient on the card within {CARD_CPU_RTOL} x max|g| of "
@@ -2644,11 +2873,11 @@ def phase_refine(check, dev, mesh, cams, targets, extent) -> dict:
     n_g = int(params.opacity_logit.shape[0])
     steps = [r for r in logs if "loss" in r]
     grows = [r for r in logs if r.get("event") == "cap_grow"]
-    deltas = [tuple(a - b for a, b in zip(c, p)) for c, p in zip(per_iter, [(0,) * 4] + per_iter[:-1])]
+    deltas = [tuple(a - b for a, b in zip(c, p)) for c, p in zip(per_iter, [(0,) * 5] + per_iter[:-1])]
     print(f"[11] refined_training on the [10] mesh: {len(verts)} vertices, {len(faces)} faces, "
           f"{n_g} Gaussians (1 per triangle), SH degree {cfg.sh_degree}, iterations 1-"
           f"{REFINE_ITERS}: {wall:.2f} s wall; normal_consistency_pairs {pairs_s * 1e3:.1f} ms host "
-          f"({len(pairs_np)} pairs); launches (K1, K2, K3, binning) {counts}; cap growths to (k_max, "
+          f"({len(pairs_np)} pairs); launches (K1, K2, K3, binning, preprocess) {counts}; cap growths to (k_max, "
           f"tile_cap, dup_capacity) "
           f"{[(r['new']['k_max'], r['new']['tile_cap'], r['new']['dup_capacity']) for r in grows]}")
     for r, dl in zip(steps, deltas):
@@ -2657,7 +2886,7 @@ def phase_refine(check, dev, mesh, cams, targets, extent) -> dict:
     check(len(steps) == REFINE_ITERS and all(math.isfinite(r["loss"]) for r in steps)
           and all(bool(torch.isfinite(getattr(params, f)).all()) for f in BOUND_FIELDS),
           "refine: every loss and every parameter finite")
-    check(deltas == [(1, 1, 1, 1)] * REFINE_ITERS and counts == (REFINE_ITERS,) * 4,
+    check(deltas == [(1, 1, 1, 1, 0)] * REFINE_ITERS and counts == (REFINE_ITERS,) * 4 + (0,),
           "refine: one launch of K1, K2, K3 and the binning per iteration")
 
     # The loss over the 8 views before and after, at caps that drop nothing.
@@ -2732,7 +2961,7 @@ def phase_refine(check, dev, mesh, cams, targets, extent) -> dict:
     peak = torch.cuda.max_memory_allocated() - base
     timed_counts = launches()
     ovf = [adaptive.read_overflow(a) for a in auxes]
-    check(timed_counts == (TIMED_STEPS,) * 4,
+    check(timed_counts == (TIMED_STEPS,) * 4 + (0,),
           f"timed refine steps: one launch of each kernel per step {timed_counts}")
     check(all(not adaptive.overflowed(o) for o in ovf)
           and all(math.isfinite(float(a["loss"])) for a in auxes),
@@ -2915,7 +3144,7 @@ def phase_texture(check, dev, params, bm, cams) -> dict:
           f"{sh}, {len(cams)} cameras at {H}x{W}, TextureConfig defaults (square_size "
           f"{cfg.square_size}), render caps dup {BAKE_DUP_CAPACITY} k_max {BAKE_K_MAX}, "
           f"rasterize_mesh dup 2^20 k_max {BAKE_RASTER_K_MAX}: {wall:.2f} s wall (OBJ, MTL and PNG "
-          f"written); atlas {tex_size}x{tex_size} texels; launches (K1, K2, K3, binning) {counts}")
+          f"written); atlas {tex_size}x{tex_size} texels; launches (K1, K2, K3, binning, preprocess) {counts}")
     for i, row in enumerate(rows):
         print(f"    camera {i}: render_bound {row['render_ms']:.2f} ms device, rasterize_mesh "
               f"{row['raster_ms']:.2f} ms device, accumulation {row['acc_ms']:.1f} ms host; "
@@ -2930,7 +3159,7 @@ def phase_texture(check, dev, params, bm, cams) -> dict:
         print(f"    NOTE: at the bake's fixed caps render_bound dropped splats on cameras {dropping} "
               f"and rasterize_mesh truncated tiles at k_max {BAKE_RASTER_K_MAX} on cameras "
               f"{truncated}: faults of the reference's bake (no capacity loop), kept for parity")
-    check(counts == (len(cams), 0, 0, len(cams)) and len(recs["K1"]) == len(cams)
+    check(counts == (len(cams), 0, 0, len(cams), 0) and len(recs["K1"]) == len(cams)
           and not recs["K2"] and not recs["K3"], "texture bake: one K1 and one binning launch per "
           "camera, no K2 or K3")
     check(tex_size == expect_size and all(r["raster_overflow"] == 0 for r in rows),
@@ -3053,7 +3282,7 @@ def phase_pipeline(check, dev) -> dict:
     mesh = stage("extract_mesh", run_extract_mesh, coarse)
     refined = stage("refine", run_refine, mesh)
     textured = stage("texture", run_texture, refined)
-    total = tuple(sum(c[k] for c in counts.values()) for k in range(4))
+    total = tuple(sum(c[k] for c in counts.values()) for k in range(5))
     art = dict(vanilla=gs, coarse=coarse, mesh=mesh, refined=refined, textured=textured)
 
     scores = {}
@@ -3073,7 +3302,7 @@ def phase_pipeline(check, dev) -> dict:
           f"96x96, {len(train_idx)} train / {len(test_idx)} held out; built in {scene_s:.2f} s), "
           f"iterations {PIPE_ITERS}: stage walls "
           + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
-          + f"; launches (K1, K2, K3, binning) " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+          + f"; launches (K1, K2, K3, binning, preprocess) " + ", ".join(f"{k} {v}" for k, v in counts.items()))
     print("    held-out PSNR / SSIM: " + ", ".join(f"{k} {p:.3f} dB / {s:.4f}"
                                                   for k, (p, s) in scores.items())
           + f" (floors {PARITY_FLOORS}; JAX on a CPU, tests/test_parity.py:87-92: 17.00 / 19.10 / "
@@ -3098,7 +3327,7 @@ def phase_pipeline(check, dev) -> dict:
             a = fn(rcfg, scene, a, log_fn=log_fn)
 
     skipped, rcounts, _ = resumed_run(again)
-    print(f"    resumed run: stage_skip events {skipped}, launches (K1, K2, K3, binning) {rcounts}")
+    print(f"    resumed run: stage_skip events {skipped}, launches (K1, K2, K3, binning, preprocess) {rcounts}")
 
     p = {k: v[0] for k, v in scores.items()}
     check(all(math.isfinite(v) for v in p.values()), "pipeline: every stage's PSNR finite")
@@ -3111,10 +3340,10 @@ def phase_pipeline(check, dev) -> dict:
     n_train = len(train_idx)
     v_it, c_it, r_it = PIPE_ITERS
     kc = counts["coarse"]
-    check(counts["vanilla"] == (v_it,) * 4 and counts["refine"] == (r_it,) * 4
-          and counts["extract_mesh"] == (n_train, 0, 0, n_train)
-          and counts["texture"] == (n_train, 0, 0, n_train)
-          and kc[0] == kc[1] == kc[2] == kc[3] and c_it <= kc[0] <= 2 * c_it,
+    check(counts["vanilla"] == (v_it,) * 4 + (0,) and counts["refine"] == (r_it,) * 4 + (0,)
+          and counts["extract_mesh"] == (n_train, 0, 0, n_train, 0)
+          and counts["texture"] == (n_train, 0, 0, n_train, 0)
+          and kc[0] == kc[1] == kc[2] == kc[3] and kc[4] == 0 and c_it <= kc[0] <= 2 * c_it,
           "pipeline launches: K1/K2/K3 and the binning once per vanilla and refine iteration, "
           "once or twice per coarse iteration, K1 and the binning once per camera in extraction "
           "and the bake")
@@ -3122,7 +3351,7 @@ def phase_pipeline(check, dev) -> dict:
           and len(lf) == len(mf) and int(v_model.alive.sum()) > 0
           and int(c_model.alive.sum()) > 0 and mc is not None,
           "pipeline: every artifact loads back (3 Gaussians per mesh triangle)")
-    check(skipped == list(PIPE_STAGES) and rcounts == (0, 0, 0, 0),
+    check(skipped == list(PIPE_STAGES) and rcounts == (0,) * 5,
           "pipeline: a resumed run skips every stage and launches no kernel")
     return dict(walls=walls, counts=counts, launches=total, scores=scores, scene_s=scene_s,
                 errs=errs, scene=scene, artifacts=dict(vanilla=gs, coarse=coarse, refined=refined))
@@ -3282,7 +3511,7 @@ def phase_twopass(check, dev, model, cams, fused_caps, card) -> dict:
     serve = launches()
     ovfs = [adaptive.read_overflow(o) for o in outs]
     print(f"[14] two-pass serving: {len(cams)} views, {renders} renders (incl. cap growth), "
-          f"launches (K1, K2, K3, binning) {serve}, {wall_s:.2f} s wall; caps after view 0 "
+          f"launches (K1, K2, K3, binning, preprocess) {serve}, {wall_s:.2f} s wall; caps after view 0 "
           f"{caps_kw(tp_caps[0])}, after view {len(cams) - 1} {caps_kw(caps)}")
     print(f"    max_tiles_touched per view {[o['max_tiles_touched'] for o in ovfs]}; dense "
           f"expansion {model.capacity} x tile_cap {caps.tile_cap} = "
@@ -3290,9 +3519,9 @@ def phase_twopass(check, dev, model, cams, fused_caps, card) -> dict:
           f"{[o['num_rendered'] for o in ovfs]}; deepest tile per view "
           f"{[o['max_tile_count'] for o in ovfs]}; peak memory {peak_gb:.3f} GB "
           f"({base_gb:.3f} GB held before)")
-    check(serve == (renders, 0, 0, 0) and renders >= len(cams),
-          "two-pass serving: one K1 launch per render, no backward, no plain version, no fused "
-          "path (so no binning kernel)")
+    check(serve == (renders, 0, 0, 0, renders) and renders >= len(cams),
+          "two-pass serving: one K1 and one preprocess launch per render, no backward, no plain "
+          "version, no fused path (so no binning kernel)")
     errs = {}
     with torch.no_grad():
         for i, (cam, out, ovf) in enumerate(zip(cams, outs, ovfs)):
@@ -3316,7 +3545,7 @@ def phase_twopass(check, dev, model, cams, fused_caps, card) -> dict:
         g_tp, _ = param_grads(model, cams[0], "pallas_twopass", kw0)
         torch.cuda.synchronize()
     fb_counts = launches()
-    check(fb_counts == (1, 1, 1, 0), f"two-pass fwd+bwd at view 0: one launch each of K1, K2, "
+    check(fb_counts == (1, 1, 1, 0, 0), f"two-pass fwd+bwd at view 0: one launch each of K1, K2, "
           f"K3, none of the binning (got {fb_counts})")
     for k, e in check_recorded(check, recs, "[14]", "two-pass fwd+bwd, view 0").items():
         errs[k] = max(errs.get(k, 0.0), e)
@@ -3391,7 +3620,7 @@ def phase_oracle_triangle(check, dev) -> dict:
     mode runs inside no_fallback(): reference and tiled launch no kernel,
     two-pass one K1 per render, held to its plain version on the last
     render's arguments."""
-    outs, errs, card_launches = {}, {}, (0, 0, 0, 0)
+    outs, errs, card_launches = {}, {}, (0,) * 5
     for d in (dev, torch.device("cpu")):
         args, kw = oracle_scene(d)
         on_card = d.type == "cuda"
@@ -3416,13 +3645,13 @@ def phase_oracle_triangle(check, dev) -> dict:
             outs[(d.type, mode)] = {k: out[k].cpu() for k in ("image", "final_T", "n_contrib")}
             counts = launches()
             print(f"[14] oracle scene, {mode} on {d.type}: {ms:.1f} ms host (adaptive caps "
-                  f"{caps_kw(caps)}, {renders} renders, launches (K1, K2, K3, binning) {counts}), "
+                  f"{caps_kw(caps)}, {renders} renders, launches (K1, K2, K3, binning, preprocess) {counts}), "
                   f"final_T "
                   f"min {float(out['final_T'].min()):.3e}, n_contrib max "
                   f"{int(out['n_contrib'].max())}")
             if not on_card:
                 continue
-            want = (renders, 0, 0, 0) if mode == "pallas_twopass" else (0, 0, 0, 0)
+            want = (renders, 0, 0, 0, 0) if mode == "pallas_twopass" else (0,) * 5
             check(counts == want, f"oracle scene, {mode} on the card: launches {want} "
                   f"(got {counts})")
             card_launches = tuple(a + b for a, b in zip(card_launches, counts))
@@ -3473,7 +3702,7 @@ def phase_compositor(check, dev, params, bm, card) -> dict:
         wall_s = time.perf_counter() - t0
     finally:
         demo_hybrid.composite_render = orig
-    check(launches() == (0, 0, 0, 0), f"run_demo: the compositor's tiled mode launches no kernel "
+    check(launches() == (0,) * 5, f"run_demo: the compositor's tiled mode launches no kernel "
           f"(got {launches()})")
     n = int(params.opacity_logit.shape[0])
     print(f"[14] demo_hybrid.run_demo on [11]'s refined model ({n} Gaussians; k_max 1024, "
@@ -3545,7 +3774,7 @@ def phase_entry_points(check, dev, scene, artifacts) -> dict:
     out = os.path.join(root, "renders")
     entry("render", lambda: render_script.main(
         ["-s", scene_dir, "-c", artifacts["vanilla"], "-o", out], device=dev),
-        (len(scene.cameras), 0, 0, len(scene.cameras)))
+        (len(scene.cameras), 0, 0, len(scene.cameras), len(scene.cameras)))
     loaded = load_scene(PipelineConfig(scene_path=scene_dir), device=dev)
     _, test_idx = loaded.split(True)
     model = load_ply(artifacts["vanilla"], device=dev)
@@ -3582,7 +3811,7 @@ def phase_entry_points(check, dev, scene, artifacts) -> dict:
     paths = entry("compose_animation", lambda: compose_animation.main(
         ["--ply", artifacts["vanilla"], "--ply", artifacts["coarse"], "--trajectory", traj,
          "--animation", anim, "--height", str(ENTRY_HW), "--width", str(ENTRY_HW),
-         "-o", os.path.join(root, "frames")], device=dev), (0, 0, 0, 0), refuse=True)
+         "-o", os.path.join(root, "frames")], device=dev), (0,) * 5, refuse=True)
     imgs = [read_png(p) for p in paths]
     print(f"[14] compose_animation, 2 PLYs x 4 frames at {ENTRY_HW}x{ENTRY_HW} (the compositor's "
           f"tiled mode): {walls['compose_animation']:.2f} s; frame means "
@@ -3592,17 +3821,17 @@ def phase_entry_points(check, dev, scene, artifacts) -> dict:
 
     ckpt = entry("train_vanilla_gs", lambda: train_vanilla_gs.main(
         ["-s", scene_dir, "-o", os.path.join(root, "vanilla"), "--iterations",
-         str(ENTRY_VANILLA_ITERS)], device=dev), (ENTRY_VANILLA_ITERS,) * 4)
+         str(ENTRY_VANILLA_ITERS)], device=dev), (ENTRY_VANILLA_ITERS,) * 4 + (0,))
     trained = load_ply(ckpt, device=dev)
     finite = all(bool(torch.isfinite(getattr(trained.params, f)).all()) for f in PARAM_FIELDS)
     print(f"[14] train_vanilla_gs, {ENTRY_VANILLA_ITERS} iterations on that scene (the loader's "
           f"100,000-point random init, capacity {trained.capacity}): "
-          f"{walls['train_vanilla_gs']:.2f} s, launches (K1, K2, K3, binning) "
+          f"{walls['train_vanilla_gs']:.2f} s, launches (K1, K2, K3, binning, preprocess) "
           f"{counts['train_vanilla_gs']}; checkpoint {int(trained.alive.sum())} Gaussians")
     check(finite and int(trained.alive.sum()) > 0, "train_vanilla_gs: the checkpoint loads back, "
           "finite, with live Gaussians")
     return dict(walls=walls, errs=errs,
-                launches=tuple(sum(c[k] for c in counts.values()) for k in range(4)))
+                launches=tuple(sum(c[k] for c in counts.values()) for k in range(5)))
 
 
 # --- [15] the multi-device paths ----------------------------------------
@@ -3661,7 +3890,7 @@ def sharded_views(check, dev, axis, model, cams, kws: list[dict], tag: str, labe
             outs.append(full)
     res = dict(counts=launches(), bytes=comm.counters(), ms=ms,
                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9, errs={})
-    check(res["counts"] == (len(cams), 0, 0, 0),
+    check(res["counts"] == (len(cams), 0, 0, 0, 0),
           f"{label}: one K1 launch per view on this rank, no backward, no plain version, no "
           f"fused path and so no binning kernel (got {res['counts']})")
     if axis.index == 0:
@@ -3697,7 +3926,7 @@ def sharded_fwd_bwd(check, dev, axis, model, cam, kw: dict, tag: str) -> dict:
         grads = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize(dev)
     counts = launches()
-    check(counts == (1, 1, 1, 0), f"tile-sharded fwd+bwd: one launch each of K1, K2, K3 on "
+    check(counts == (1, 1, 1, 0, 0), f"tile-sharded fwd+bwd: one launch each of K1, K2, K3 on "
           f"this rank, none of the binning (got {counts})")
     errs = check_recorded(check, recs, tag, "tile-sharded fwd+bwd, view 0 (this rank's band)")
     recs.clear()
@@ -3813,7 +4042,7 @@ def parallel_training(check, dev, axis, data: dict, tag: str) -> dict:
         p, a, stats, aux = step(*state, cams, targets, PAR_STEP_IT)
         torch.cuda.synchronize()
     res["counts_2x2"] = launches()
-    check(res["counts_2x2"] == (1, 1, 1, 1), f"(2, 2) step: one launch each of K1, K2, K3 and "
+    check(res["counts_2x2"] == (1, 1, 1, 1, 0), f"(2, 2) step: one launch each of K1, K2, K3 and "
           f"the binning on this rank (got {res['counts_2x2']})")
     whole = (gather_params(p, mesh.gauss), gather_params(a.mu, mesh.gauss), float(aux["loss"]))
     whole_stats = gather_params(stats, mesh.gauss)
@@ -3838,7 +4067,7 @@ def parallel_training(check, dev, axis, data: dict, tag: str) -> dict:
         p, a, stats, aux = tstep(*state, cams[0], targets[0], PAR_STEP_IT)
         torch.cuda.synchronize()
     res["counts_tile"] = launches()
-    check(res["counts_tile"] == (1, 1, 1, 0), f"tile-sharded step: one launch each of K1, K2, "
+    check(res["counts_tile"] == (1, 1, 1, 0, 0), f"tile-sharded step: one launch each of K1, K2, "
           f"K3 on this rank, none of the binning (got {res['counts_tile']})")
     res["errs"] = check_recorded(check, recs, tag, "tile-sharded train step (this rank's band)")
     recs.clear()
@@ -3902,7 +4131,7 @@ def parallel_coarse(check, dev, axis, data: dict, tag: str) -> dict:
                          [iteration_generator(0, it + j, dev) for j in range(2)])
         torch.cuda.synchronize()
     res["counts"] = launches()
-    check(res["counts"] == (2, 2, 2, 2), f"(2, 2) coarse 'sdf' step: two launches each of K1, "
+    check(res["counts"] == (2, 2, 2, 2, 0), f"(2, 2) coarse 'sdf' step: two launches each of K1, "
           f"K2, K3 and the binning on this rank, image and depth (got {res['counts']})")
     whole = (gather_params(p, mesh.gauss), gather_params(a.mu, mesh.gauss), float(aux["loss"]))
     if axis.index == 0:
@@ -3955,7 +4184,7 @@ def parallel_refine(check, dev, axis, data: dict, tag: str) -> dict:
         p, a, aux = step(p, a, cams, gts, PAR_STEP_IT)
         torch.cuda.synchronize()
     counts = launches()
-    check(counts == (1, 1, 1, 1), f"(2, 2) refine step: one launch each of K1, K2, K3 and the "
+    check(counts == (1, 1, 1, 1, 0), f"(2, 2) refine step: one launch each of K1, K2, K3 and the "
           f"binning on this rank (got {counts})")
     whole = (gather_bound(p, mesh.gauss, sharded), gather_bound(a.mu, mesh.gauss, sharded),
              float(aux["loss"]))
@@ -4070,7 +4299,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
           f"{statistics.median(serve['ms']):.3f} ({', '.join(f'{v:.1f}' for v in serve['ms'])}); "
           f"collective bytes over the {VIEWS} views on rank 0 by op {json.dumps(by_op)}; peak "
           f"memory per rank {[round(rk['peak_gb'], 3) for rk in r['ranks']]} GB")
-    check(all(c[0][0] > 0 and c[1] == (1, 1, 1, 0) and c[3] == (1, 1, 1, 0)
+    check(all(c[0][0] > 0 and c[1] == (1, 1, 1, 0, 0) and c[3] == (1, 1, 1, 0, 0)
               for c in (rk["counts"] for rk in r["ranks"])),
           "no fallback: every rank launched K1 on (a), and K1, K2, K3 on (b) and (d)")
     print(f"[15] (d) training on {card}, {PAR_LAYOUT}: (2, 2) step median "
@@ -4082,7 +4311,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
           f"coarse {r['coarse_s']:.1f}, refine {r['refine_s']:.1f})")
 
     # (c) NCCL: world 1, and one rank per card where there are several.
-    nc_counts = (0, 0, 0, 0)
+    nc_counts = (0,) * 5
     for world in sorted({1, torch.cuda.device_count()}):
         nc = run_ranks(nccl_rank, world, device="cuda", args=(data,))
         for f in nc["failures"]:
@@ -4104,7 +4333,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
                                             rng=np.random.default_rng(0), device="cuda")
     sh_s = time.perf_counter() - t0
     g_counts = [tuple(c) for c in sh["launches"]]
-    check(len(g_counts) == PAR_WORLD and all(c[0] > 0 and c[3] == c[0] for c in g_counts),
+    check(len(g_counts) == PAR_WORLD and all(c[0] > 0 and c[3] == c[0] and c[4] == 0 for c in g_counts),
           f"(g) every rank launched K1 and one binning a K1, the plain K1-K3 refused (per rank "
           f"{g_counts})")
     t0 = time.perf_counter()
@@ -4115,7 +4344,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
     ne = float(np.abs(sh["normals"] - one["normals"]).max()) if same_n else float("inf")
     print(f"[15] (g) level set, {LEVELSET_CAMS} cameras of [10] over {PAR_WORLD} ranks on "
           f"{card}: {sh_s:.1f} s wall ({one_s:.1f} s on one rank); {len(sh['points'])} points; "
-          f"max|points diff| {pe:.3e}, max|normals diff| {ne:.3e}; launches (K1, K2, K3, binning) per "
+          f"max|points diff| {pe:.3e}, max|normals diff| {ne:.3e}; launches (K1, K2, K3, binning, preprocess) per "
           f"rank {g_counts}")
     check(same_n and pe <= 1e-5 and ne <= 1e-4
           and np.array_equal(sh["gaussian_idx"], one["gaussian_idx"]),
@@ -4161,7 +4390,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
             stage = [tuple(c) for r in recs if r.get("event") == "kernel_launches"
                      for c in r["per_rank"]]
             h_counts[name] = stage
-            check(len(stage) == PAR_WORLD and all(min(c) > 0 and c[3] == c[0] for c in stage),
+            check(len(stage) == PAR_WORLD and all(min(c[:4]) > 0 and c[3] == c[0] and c[4] == 0 for c in stage),
                   f"(h) {name}: every rank launched K1, K2, K3 and one binning a K1, the plain "
                   f"versions refused (per rank {stage})")
         if inner:
@@ -4172,7 +4401,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
     n_refined = load_gaussian_ply(art["refine"])["xyz"].shape[0]
     print(f"[15] (h) pipeline with devices={PAR_WORLD} (2 x 2) on [13]'s scene, {PAR_LAYOUT}: "
           f"stages {json.dumps({k: round(x, 2) for k, x in walls.items()})} s; mesh {len(v)} "
-          f"vertices, {len(f)} faces; refined {n_refined} Gaussians; launches (K1, K2, K3, binning) per "
+          f"vertices, {len(f)} faces; refined {n_refined} Gaussians; launches (K1, K2, K3, binning, preprocess) per "
           f"rank {json.dumps(h_counts)}")
     check(all(os.path.exists(a) for a in art.values()) and len(v) > 100 and len(f) > 100
           and vc is not None and n_refined == 6 * len(f)
@@ -4183,7 +4412,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
     wall = time.perf_counter() - t15
     gh_counts = tuple(sum(c) for c in zip(*g_counts, *(c for cs in h_counts.values()
                                                          for c in cs)))
-    print(f"[15] summary on {card}: {wall:.1f} s; launches (K1, K2, K3, binning) over the world-4 "
+    print(f"[15] summary on {card}: {wall:.1f} s; launches (K1, K2, K3, binning, preprocess) over the world-4 "
           f"ranks "
           f"{k_counts} (per rank {per_rank}), NCCL {nc_counts}, level set and pipeline "
           f"{gh_counts}; kernels vs plain in the ranks {json.dumps(errs)}")
@@ -4237,8 +4466,8 @@ def phase_tools(check, card) -> dict:
     # Each scene: one check forward (K1), one warm-up and ITERS timed fwd+bwd;
     # one binning a render.
     renders = timed + 2 * (bench.ITERS + 2)
-    want = (renders, timed + 2 * (bench.ITERS + 1), timed + 2 * (bench.ITERS + 1), renders)
-    print(f"[16] bench launches (K1, K2, K3, binning) {counts['bench']} (train step {warm} warm-up + "
+    want = (renders, timed + 2 * (bench.ITERS + 1), timed + 2 * (bench.ITERS + 1), renders, 0)
+    print(f"[16] bench launches (K1, K2, K3, binning, preprocess) {counts['bench']} (train step {warm} warm-up + "
           f"{bench.ITERS} timed, caps {bench_recs[0]['caps']}; expected {want})")
     check(counts["bench"] == want, "[16] bench: one K1 and one binning per render, one K2 and K3 "
           "per backward")
@@ -4257,9 +4486,10 @@ def phase_tools(check, card) -> dict:
             res = fn()
             counts[name] = launches()
         d = float((res["image_stages"] - res["image_one_call"]).abs().max())
-        print(f"[16] {name}: launches (K1, K2, K3, binning) {counts[name]}; counts "
+        print(f"[16] {name}: launches (K1, K2, K3, binning, preprocess) {counts[name]}; counts "
               f"{json.dumps(res['counts'])}; stage-by-stage image vs one-call render {d}")
-        check(all(c > 0 for c in counts[name]), f"[16] {name} launched K1, K2, K3 and the binning")
+        check(all(c > 0 for c in counts[name][:4]) and counts[name][4] == 0,
+              f"[16] {name} launched K1, K2, K3 and the binning, and no preprocess kernel")
         check(d <= STAGE_IMAGE_ATOL, f"[16] {name}: the stage-by-stage image equals the one-call "
                                      f"render within {STAGE_IMAGE_ATOL}")
         results[name] = res["ms"]
@@ -4274,7 +4504,8 @@ def phase_tools(check, card) -> dict:
             reset_launches()
             recs_ = fn()
             counts[name] = launches()
-        check(counts[name] == (0, 0, 0, 0), f"[16] {name} runs no compositing or binning kernel")
+        check(counts[name] == (0,) * 5, f"[16] {name} runs no compositing, binning or preprocess "
+                                          f"kernel")
         check(all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in recs_),
               f"[16] {name}: every time finite and positive")
         prims += [dict(r, tool=name) for r in recs_]
@@ -4287,7 +4518,7 @@ def phase_tools(check, card) -> dict:
     print(f"[16] summary on {card}: {wall:.1f} s; bench "
           + ", ".join(f"{r['metric']} {r['value']:.0f} rays/s (median {r['ms_median']:.3f} ms, "
                       f"{r['ms_min']:.3f}-{r['ms_max']:.3f})" for r in lines)
-          + f"; launches (K1, K2, K3, binning) all {total}; kernels vs plain {json.dumps(errs)}")
+          + f"; launches (K1, K2, K3, binning, preprocess) all {total}; kernels vs plain {json.dumps(errs)}")
     return dict(launches=total, errs=errs, wall_s=wall)
 
 
@@ -4359,9 +4590,9 @@ def phase_channels(check, dev, model, cam, caps, card) -> dict:
         groups = len(tc_mod.channel_groups(ch))
         blocks = -(-(6 + ch) // segsum_mod.MAX_ROWS)
         ovf = adaptive.read_overflow(out)
-        print(f"[17] C = {ch}: launches (K1, K2, K3, binning) {counts[ch]} ({groups} channel groups, "
+        print(f"[17] C = {ch}: launches (K1, K2, K3, binning, preprocess) {counts[ch]} ({groups} channel groups, "
               f"{blocks} row blocks of {6 + ch} rows); overflow {json.dumps(ovf)}")
-        check(counts[ch] == (groups, groups, blocks, 1),
+        check(counts[ch] == (groups, groups, blocks, 1, 0),
               f"[17] C = {ch}: one K1 and one K2 launch per channel group, one K3 per row block, "
               f"one binning")
         check(all(ovf[k] == 0 for k in ("bin_overflow", "big_overflow", "cap_overflow",
@@ -4432,8 +4663,9 @@ def phase_channels(check, dev, model, cam, caps, card) -> dict:
               f"({sorted(used)}), host-staged bytes under gloo")
         check(all(p is not None and 0 < p < 80 for p in r["peak_gb_by_rank"]),
               f"[17] bench scale {r['step']}: peak GB per rank {r['peak_gb_by_rank']}")
-        check(all(all(c > 0 for c in rank) for rank in r["launches"]),
-              f"[17] bench scale: every rank launched K1, K2, K3 and the binning {r['launches']}")
+        check(all(all(c > 0 for c in rank[:4]) and rank[4] == 0 for rank in r["launches"]),
+              f"[17] bench scale: every rank launched K1, K2, K3 and the binning, and no "
+              f"preprocess kernel {r['launches']}")
     wall_b = time.perf_counter() - t1
     total = tuple(sum(c) for c in zip(*counts.values()))
     print(f"[17] summary on {card}: (a) {wall_a:.1f} s, (b) {wall_b:.1f} s; launches (K1, K2, K3, "
@@ -4653,10 +4885,11 @@ def phase_pipeline_width(check, dev, card) -> dict:
           and len(train_idx) == PIPE_VIEWS - 2,
           f"[18] the COLMAP scene loads whole: {PIPE_VIEWS} views at {H}x{W}, {TRAIN_N} points, "
           f"views 0 and 8 held out")
-    want = {"vanilla": (PIPE_VANILLA_ITERS,) * 4,
-            "coarse": (COARSE_END - PIPE_COARSE_START + COARSE_END - COARSE_MILESTONE,) * 4,
-            "extract_mesh": (len(train_idx), 0, 0, len(train_idx)), "refine": (REFINE_ITERS,) * 4,
-            "texture": (len(train_idx), 0, 0, len(train_idx))}
+    want = {"vanilla": (PIPE_VANILLA_ITERS,) * 4 + (0,),
+            "coarse": (COARSE_END - PIPE_COARSE_START + COARSE_END - COARSE_MILESTONE,) * 4 + (0,),
+            "extract_mesh": (len(train_idx), 0, 0, len(train_idx), 0),
+            "refine": (REFINE_ITERS,) * 4 + (0,),
+            "texture": (len(train_idx), 0, 0, len(train_idx), 0)}
     errs: dict[str, float] = {}
     for name in PIPE_STAGES:
         st = stages[name]
@@ -4665,7 +4898,7 @@ def phase_pipeline_width(check, dev, card) -> dict:
         steps = [r for tag, r in logs if tag == name and "loss" in r]
         events = collections.Counter(r.get("event") for tag, r in logs
                                      if tag == name and r.get("event"))
-        print(f"[18] {name}: {st['wall_s']:.2f} s wall, launches (K1, K2, K3, binning) "
+        print(f"[18] {name}: {st['wall_s']:.2f} s wall, launches (K1, K2, K3, binning, preprocess) "
               f"{st['launches']}, "
               f"peak {st['peak_gb']:.3f} GB (allocated at its start {st['start_gb']:.3f}), "
               f"hand-off {st['handoff_s']:.3f} s ("
@@ -4677,7 +4910,7 @@ def phase_pipeline_width(check, dev, card) -> dict:
               + (f"; events {dict(events)}" if events else ""))
         for r in (r for tag, r in logs if tag == name and r.get("event") == "cap_grow"):
             print(f"    {json.dumps(r)}")
-        check(st["launches"] == want[name], f"[18] {name}: launches (K1, K2, K3, binning) "
+        check(st["launches"] == want[name], f"[18] {name}: launches (K1, K2, K3, binning, preprocess) "
               f"{want[name]}")
         check(all(math.isfinite(r["loss"]) for r in steps), f"[18] {name}: every loss finite")
         for k, v in st["errs"].items():
@@ -4755,17 +4988,19 @@ def phase_pipeline_width(check, dev, card) -> dict:
     out2 = os.path.join(root, "entry")
     refined2 = entry("train_refined", lambda: train_refined.main(
         ["-s", scene_dir, "-m", art["mesh"], "-o", out2, "-f", str(ENTRY_REFINE_ITERS)], device=dev),
-        (ENTRY_REFINE_ITERS,) * 4)
+        (ENTRY_REFINE_ITERS,) * 4 + (0,))
     r2 = load_ply(refined2, device=dev)
     obj2 = os.path.join(out2, "textured.obj")  # the script makes no directory, as JAX's
     entry("extract_refined_mesh_with_texture", lambda: extract_refined_mesh_with_texture.main(
         ["-s", scene_dir, "-m", state, "-o", obj2], device=dev),
-        (len(train_idx), 0, 0, len(train_idx)))
+        (len(train_idx), 0, 0, len(train_idx), 0))
     same_tex = np.array_equal(read_png(os.path.splitext(obj2)[0] + ".png"), png)
     res = entry("metrics", lambda: metrics_script.main(
         ["--scene_path", scene_dir, "--checkpoint", art["vanilla"], "--refined_state", state,
          "--textured_obj", art["textured"], "--output", os.path.join(out2, "metrics.json")],
-        device=dev), None)
+        device=dev), (lambda g: g[0] > g[4] > 0 and g[1:3] == (0, 0) and g[3] == g[0],
+                      "(> 0, 0, 0, = K1, > 0 and < K1: the PLY's renders take the preprocess "
+                      "kernel, the refined state's render_bound does not)"))
     scores = {k: (v["psnr"], v["ssim"]) for k, v in res.items()}
     print(f"[18] entry points on {card}: " + ", ".join(
         f"{k} {ep_walls[k]:.2f} s {ep_counts[k]}" for k in ep_walls)
@@ -4791,7 +5026,7 @@ def phase_pipeline_width(check, dev, card) -> dict:
     skipped, rcounts, resume_s = resumed_run(rerun)
     print(f"[18] resumed run: {resume_s:.2f} s, stage_skip events {skipped}, launches (K1, K2, K3, "
           f"binning) {rcounts}")
-    check(skipped == list(PIPE_STAGES) and rcounts == (0, 0, 0, 0) and again["art"] == art,
+    check(skipped == list(PIPE_STAGES) and rcounts == (0,) * 5 and again["art"] == art,
           "[18] a resumed run skips all five stages and launches no kernel")
     # The textured OBJ (with its MTL and PNG) stays for [19]'s run_viewer.
     kept = os.path.join(WORK, "textured_18")
@@ -4806,7 +5041,7 @@ def phase_pipeline_width(check, dev, card) -> dict:
           f"{load_s:.2f} s, pipeline {pipe_s:.2f} s with its kernel checks); stages "
           + ", ".join(f"{k} {v['wall_s']:.2f} s / {v['peak_gb']:.2f} GB / hand-off "
                       f"{v['handoff_s']:.2f} s" for k, v in stages.items())
-          + f"; launches (K1, K2, K3, binning) all {total}; kernels vs plain {json.dumps(errs)}")
+          + f"; launches (K1, K2, K3, binning, preprocess) all {total}; kernels vs plain {json.dumps(errs)}")
     return dict(launches=total, errs=errs, wall_s=wall,
                 textured=os.path.join(kept, os.path.basename(art["textured"])))
 
@@ -4952,7 +5187,7 @@ def parity_protocol(check, dev, card: str, tag: str, iters, out_json: str, workd
                       for k in ("vanilla", "coarse_sdf", "refined"))
           + f"; mesh {st['mesh']['vertices']} vertices / {st['mesh']['faces']} faces")
     for label, t in timed.items():
-        print(f"{tag} {label}: {t['wall_s']:.2f} s, launches (K1, K2, K3, binning) {t['launches']}, "
+        print(f"{tag} {label}: {t['wall_s']:.2f} s, launches (K1, K2, K3, binning, preprocess) {t['launches']}, "
               f"peak "
               f"{t['peak_gb']:.3f} GB (allocated at its start {t['start_gb']:.3f})")
 
@@ -5022,18 +5257,21 @@ def parity_protocol(check, dev, card: str, tag: str, iters, out_json: str, workd
     check(len(seen["levelset"]) == len(train_idx), f"{tag} the level set renders each of the "
           f"{len(train_idx)} train cameras once")
     sdf_from = v_it + int(c_it * 0.3)
-    want = {"vanilla": (v_it,) * 4, "coarse": (c_it + v_it + c_it - sdf_from,) * 4,
-            "extract_mesh": (len(train_idx), 0, 0, len(train_idx)), "refine": (r_it,) * 4}
+    want = {"vanilla": (v_it,) * 4 + (0,), "coarse": (c_it + v_it + c_it - sdf_from,) * 4 + (0,),
+            "extract_mesh": (len(train_idx), 0, 0, len(train_idx), 0),
+            "refine": (r_it,) * 4 + (0,)}
     for name, w in want.items():
-        check(timed[name]["launches"] == w, f"{tag} {name}: launches (K1, K2, K3, binning) {w}")
+        check(timed[name]["launches"] == w, f"{tag} {name}: launches (K1, K2, K3, binning, preprocess) {w}")
     for label, t in timed.items():
         if label not in want:
             check(t["launches"][0] >= len(scene.cameras if label == "scene" else test_idx)
-                  and t["launches"][1:3] == (0, 0) and t["launches"][3] == t["launches"][0],
-                  f"{tag} {label}: K1 at least once per view and one binning a K1, no K2 or K3")
+                  and t["launches"][1:3] == (0, 0)
+                  and t["launches"][3] == t["launches"][4] == t["launches"][0],
+                  f"{tag} {label}: K1 at least once per view and one binning and one preprocess "
+                  f"a K1, no K2 or K3")
     check(0 < alive["coarse"] <= alive["vanilla"] <= capacity, f"{tag} 0 < coarse alive <= "
           f"vanilla alive <= capacity")
-    launches = tuple(sum(t["launches"][k] for t in timed.values()) for k in range(4))
+    launches = tuple(sum(t["launches"][k] for t in timed.values()) for k in range(5))
     return dict(results=res, written=written, timed=timed, logs=logs, alive=alive,
                 qem=seen["qem"], init=init_r, scene=scene, target=seen["target"], cfg=cfg, art=art,
                 errs=errs,
@@ -5168,7 +5406,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
             ["--out", os.path.join(root, "again.json"), "--workdir", workdir], device=dev), None)
     print(f"[19] run_parity.main again on the same workdir: "
           f"{walls['run_parity.main again']:.2f} s, "
-          f"stage_skip {skips}, launches (K1, K2, K3, binning) {counts['run_parity.main again']}")
+          f"stage_skip {skips}, launches (K1, K2, K3, binning, preprocess) {counts['run_parity.main again']}")
     check(skips == list(PARITY_STAGES) and again["stages"] == pa["results"]["stages"],
           "[19] run_parity.main again: every training stage skips, the scores are the first run's")
 
@@ -5224,7 +5462,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
           "[19] resolution factor 2: half-size cameras (same pose and field of view), images "
           "near a 2x2 box filter")
     check(float((views[1] - mem).abs().max()) <= 1e-4 and tuple(views[2].shape) == (h2, h2, 3)
-          and bool(torch.isfinite(views[2]).all()) and view_counts == (3, 0, 0, 3),
+          and bool(torch.isfinite(views[2]).all()) and view_counts == (3, 0, 0, 3, 3),
           "[19] the vanilla model renders the loaded cameras as the in-memory ones")
     del loaded, half, test_scene, views, mem
 
@@ -5254,7 +5492,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
                  lambda **kw: dataclasses.replace(cfg, **kw)):
         mesh2 = entry("extract_mesh", lambda: extract_mesh_script.main(
             ["-s", nerf, "-c", art["coarse"], "-o", os.path.join(root, "extract")], device=dev),
-            (len(train_idx), 0, 0, len(train_idx)))
+            (len(train_idx), 0, 0, len(train_idx), 0))
     mv, mf, _ = load_mesh_ply(art["extract_mesh"])
     mv2, mf2, _ = load_mesh_ply(mesh2)
     gap = mesh_gap((mv, mf), (mv2, mf2))
@@ -5272,7 +5510,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
     abl = {}
     for name, fn in (("centers", lambda m, cams: extract_mesh_from_gaussian_centers(m, cams)),
                      ("marching cubes", lambda m, cams: extract_mesh_with_marching_cubes(m))):
-        v, f = entry(f"ablation {name}", lambda: fn(c_model, train_cams), (0, 0, 0, 0))
+        v, f = entry(f"ablation {name}", lambda: fn(c_model, train_cams), (0,) * 5)
         abl[name] = (len(v), len(f), float(np.median(np.linalg.norm(v, axis=1))))
     small = {}
     for dname in (dev, "cpu"):
@@ -5363,7 +5601,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
     # run_viewer on the refined PLY and [18]'s textured OBJ.
     viewer = os.path.join(root, "viewer")
     desc = entry("run_viewer", lambda: run_viewer.main(
-        ["-p", art["refine"], "-m", textured_obj, "--viewer_dir", viewer]), (0, 0, 0, 0))
+        ["-p", art["refine"], "-m", textured_obj, "--viewer_dir", viewer]), (0,) * 5)
     with open(desc) as f:
         d = json.load(f)
     print(f"[19] run_viewer: {walls['run_viewer']:.2f} s; descriptor {json.dumps(d)}")
@@ -5373,7 +5611,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
           "[19] run_viewer's descriptor loads back and names the refined PLY, the OBJ and its PNG")
     shutil.rmtree(root, ignore_errors=True)
 
-    total = tuple(pa["launches"][k] + sum(c[k] for c in counts.values()) for k in range(4))
+    total = tuple(pa["launches"][k] + sum(c[k] for c in counts.values()) for k in range(5))
     wall = time.perf_counter() - t_phase
     print(f"[19] summary on {card}: {wall:.1f} s (run_parity.main {pa['wall_s']:.1f} s); stages "
           + ", ".join(f"{k} {pa['timed'][k]['wall_s']:.2f} s / {pa['timed'][k]['peak_gb']:.2f} GB"
@@ -5381,7 +5619,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
           + "; PSNR " + ", ".join(f"{k} {pa['results']['stages'][k]['psnr']:.3f}"
                                   for k in ("vanilla", "coarse_sdf", "refined"))
           + f" dB; (b) " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
-          + f"; launches (K1, K2, K3, binning) all {total}; kernels vs plain {json.dumps(errs)}")
+          + f"; launches (K1, K2, K3, binning, preprocess) all {total}; kernels vs plain {json.dumps(errs)}")
     return dict(launches=total, errs=errs, wall_s=wall)
 
 
@@ -5401,6 +5639,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
     phase_builds()
     bn = phase_binning(check, dev)
+    pre = phase_preprocess(check, dev, bn.pop("fields"))
 
     # [3] synthetic cases: K1, K2, K3 against their plain versions.
     start, count, data, tiles_x, ch, max_chunks = synthetic_case(0)
@@ -5456,12 +5695,14 @@ def main() -> int:
     cams = ring_cameras(VIEWS, dev)
 
     # [3] full-width inputs of view 0: K1, then K2 on K1's records, then
-    # K3 on view 0's real gids and K2's d_packed as the cotangent.
+    # K3 on view 0's real gids and K2's d_packed as the cotangent. View 0
+    # is preprocessed as render_model does it (the preprocess kernel).
     settings = dataclasses.replace(rc.from_camera(cams[0], device=dev), sh_degree=SH_DEGREE)
     with torch.no_grad():
-        prep = preprocess(
-            model.params.xyz, model.opacities, settings, scales=model.scales,
-            quaternions=model.quaternions, shs=model.sh, alive_mask=model.alive,
+        p = model.params
+        prep = preprocess_mod.preprocess_fields(
+            p.xyz, p.opacity_logit, p.log_scales, p.quaternions, p.sh_dc, p.sh_rest, settings,
+            alive_mask=model.alive,
         )
         b, dup_data = bin_and_gather(
             prep, settings, CAPS.tile_cap, CAPS.dup_capacity, CAPS.cap_a, CAPS.big_cap
@@ -5557,9 +5798,29 @@ def main() -> int:
     slice_s = time.perf_counter() - t0
     serve_counts = launches()
     print(f"[4] serving: {VIEWS} views, {renders} renders (incl. cap growth), launches "
-          f"(K1, K2, K3, binning) {serve_counts}, {slice_s:.2f} s wall")
-    check(serve_counts == (renders, 0, 0, renders) and renders >= VIEWS,
-          "one K1 and one binning launch per render, no backward")
+          f"(K1, K2, K3, binning, preprocess) {serve_counts}, {slice_s:.2f} s wall")
+    check(serve_counts == (renders, 0, 0, renders, renders) and renders >= VIEWS,
+          "one K1, one binning and one preprocess launch per render, no backward")
+    # Whether a whole served view still waits on the host anywhere: printed,
+    # not checked.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        render_model(model, cams[0], **caps_kw(view_caps[0]))
+        sync = "no sync"
+    except RuntimeError as e:
+        sync = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"[4] one served view (render_model, view 0) under set_sync_debug_mode('error'): {sync}")
+    # The preprocess route's counter while a profiler collects: 1 a render.
+    profiling.reset()
+    with torch.profiler.profile():
+        for cam, caps in zip(cams[:2], view_caps[:2]):
+            render_model(model, cam, **caps_kw(caps))
+    hits = [c["value"] for c in profiling.recorded()["counters"]
+            if c["name"] == "raster.preprocess_kernel"]
+    print(f"[4] raster.preprocess_kernel over two profiled served views: {hits}")
+    check(hits == [1, 1], "served views: raster.preprocess_kernel counts one kernel hit a render")
     for i, (out, caps) in enumerate(zip(outs, view_caps)):
         ovf = adaptive.read_overflow(out)
         img, ft = out["image"], out["final_T"]
@@ -5689,7 +5950,7 @@ def main() -> int:
           f"refine step median {rf['step_ms']:.3f} ms, device busy {rf['busy_ms']:.3f} ms of "
           f"{rf['wall_ms']:.3f} ms profiled (idle share {1.0 - rf['busy_ms'] / rf['wall_ms']:.3f}), "
           f"peak {rf['peak_gb']:.3f} GB; refine window {rf['wall_s']:.2f} s, resume "
-          f"{rf['resume_s']:.2f} s; launches (K1, K2, K3, binning) training [7] {tr['launches']}, "
+          f"{rf['resume_s']:.2f} s; launches (K1, K2, K3, binning, preprocess) training [7] {tr['launches']}, "
           f"mesh "
           f"[10] {ex['launches']}, refine [11] {rf['launches']}")
 
@@ -5708,7 +5969,7 @@ def main() -> int:
           f"stages "
           + ", ".join(f"{k} {v:.2f} s" for k, v in pl["walls"].items())
           + "; PSNR " + ", ".join(f"{k} {v[0]:.3f}" for k, v in pl["scores"].items())
-          + f" dB; launches (K1, K2, K3, binning) bake [12] {tx['launches']}, pipeline [13] "
+          + f" dB; launches (K1, K2, K3, binning, preprocess) bake [12] {tx['launches']}, pipeline [13] "
           f"{pl['launches']}")
 
     # [14] the two-pass path at full width and the tiled mode; the oracle
@@ -5760,7 +6021,7 @@ def main() -> int:
     pp = phase_parity_width(check, dev, card, pw["textured"])
     shutil.rmtree(WORK, ignore_errors=True)
 
-    k1n, k2n, k3n, binn = (sum(c) for c in zip(tr["launches"], ex["launches"], rf["launches"],
+    k1n, k2n, k3n, binn, pren = (sum(c) for c in zip(tr["launches"], ex["launches"], rf["launches"],
                                                tx["launches"], pl["launches"], launches14,
                                                pr["launches"], tl["launches"], wc["launches"],
                                                pw["launches"], pp["launches"]))
@@ -5775,6 +6036,7 @@ def main() -> int:
     # point's last launches).
     later = (pr["errs"], tl["errs"], wc["errs"], pw["errs"], pp["errs"])
     (bin_row,) = [r for r in bn["rows"] if r["label"].startswith("vanilla_7k")]
+    (pre_row,) = [r for r in pre["rows"] if r["label"].startswith("vanilla_7k")]
     k1_err = max(k1_err, ex["k1_err"], rf["errs"]["K1"], tx["k1_err"], pl["errs"]["K1"],
                  errs14["K1"], *(e.get("K1", 0.0) for e in later))
     k2_err = max(k2_err, rf["errs"]["K2"], pl["errs"]["K2"], errs14["K2"],
@@ -5804,6 +6066,12 @@ def main() -> int:
              max_abs_err=bn["max_abs_err"], ms=bin_row["ms"], plain_ms=bin_row["plain_ms"],
              bound_ms=bin_row["bound_ms"], bound_by="bytes",
              library_ms=bin_row["sort_kept_keys_ms"]),
+        # [2c]'s vanilla_7k view: the kernel alone, its plain version (the
+        # activations and preprocess in torch ops), the bytes bound.
+        dict(name="preprocess", route="cuda", source="sugar_tpu_torch/csrc/preprocess.cu",
+             replaces=None, launches=pren, max_abs_err=pre["max_abs_err"], ms=pre_row["ms"],
+             plain_ms=pre_row["plain_ms"], bound_ms=pre_row["bound_ms"], bound_by="bytes",
+             library_ms=None),
     ]
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed: {check.failures}",

@@ -1,10 +1,15 @@
 """Model-level rendering: GaussianModel + Camera -> image.
 
 Port of ``sugar_tpu/models/render.py``: builds raster settings from the
-camera, applies the activations and renders through
-``raster.api.rasterize_gaussians`` on the model's device. ``render_params``
-is the training path's entry: differentiable in the raw params through
-sigmoid, exp and the quaternion normalization.
+camera and renders the model's raw fields on its device through
+``raster.preprocess.preprocess_fields`` and
+``raster.api.rasterize_preprocessed``. ``preprocess_fields`` takes the
+activations and preprocess in one kernel launch on a CUDA device when the
+render needs no gradient (a served view, an evaluation render, a
+cap-settling pass), and as differentiable torch ops otherwise (every CPU
+tensor; every training render, until that kernel has a backward).
+``render_params`` is the training path's entry: differentiable in the raw
+params through sigmoid, exp and the quaternion normalization.
 """
 
 from __future__ import annotations
@@ -14,10 +19,10 @@ import dataclasses
 import torch
 
 from sugar_tpu_torch.core.cameras import Camera
-from sugar_tpu_torch.core.quaternions import normalize as quat_normalize
 from sugar_tpu_torch.models.gaussians import GaussianModel, GaussianParams
 from sugar_tpu_torch.raster import common as rc
-from sugar_tpu_torch.raster.api import rasterize_gaussians
+from sugar_tpu_torch.raster.api import rasterize_preprocessed
+from sugar_tpu_torch.raster.preprocess import preprocess_fields
 from sugar_tpu_torch.utils import profiling
 
 
@@ -41,29 +46,10 @@ def render_model(
     if active_sh_degree is None:
         active_sh_degree = model.sh_degree
     with profiling.span("render.model", outermost=True):
-        with profiling.span("render.setup"):
-            settings = dataclasses.replace(
-                rc.from_camera(camera, bg=bg, device=model.device), sh_degree=active_sh_degree
-            )
-            k = (active_sh_degree + 1) ** 2
-            opacities, scales, quaternions = model.opacities, model.scales, model.quaternions
-            shs = None if colors_override is not None else model.sh[:, :, :k]
-        return rasterize_gaussians(
-            model.params.xyz,
-            opacities,
-            settings,
-            scales=scales,
-            quaternions=quaternions,
-            colors=colors_override,
-            shs=shs,
-            alive_mask=model.alive,
-            ndc_offset=ndc_offset,
-            mode=mode,
-            dup_capacity=dup_capacity,
-            k_max=k_max,
-            tile_cap=tile_cap,
-            cap_a=cap_a,
-            big_cap=big_cap,
+        return _render(
+            model.params, model.alive, camera, active_sh_degree, bg, ndc_offset, colors_override,
+            dict(mode=mode, dup_capacity=dup_capacity, k_max=k_max, tile_cap=tile_cap,
+                 cap_a=cap_a, big_cap=big_cap),
         )
 
 
@@ -82,29 +68,24 @@ def render_params(
     big_cap: int | None = None,
 ) -> dict:
     """Render from raw params (the training path's entry point); the image
-    is differentiable in every field of ``params`` and in ``ndc_offset``."""
+    is differentiable in every field of ``params`` and in ``ndc_offset``
+    whenever one of them requires grad."""
+    return _render(
+        params, alive, camera, active_sh_degree, bg, ndc_offset, None,
+        dict(mode=mode, dup_capacity=dup_capacity, k_max=k_max, tile_cap=tile_cap, cap_a=cap_a,
+             big_cap=big_cap),
+    )
+
+
+def _render(params, alive, camera, active_sh_degree, bg, ndc_offset, colors, raster_kw) -> dict:
+    """Settings from the camera, ``preprocess_fields``, then
+    ``rasterize_preprocessed`` with ``raster_kw``."""
     with profiling.span("render.setup"):
         settings = dataclasses.replace(
             rc.from_camera(camera, bg=bg, device=params.xyz.device), sh_degree=active_sh_degree
         )
-        k = (active_sh_degree + 1) ** 2
-        sh = torch.cat([params.sh_dc[:, :, None], params.sh_rest], dim=-1)
-        opacities = torch.sigmoid(params.opacity_logit)
-        scales = torch.exp(params.log_scales)
-        quaternions = quat_normalize(params.quaternions)
-    return rasterize_gaussians(
-        params.xyz,
-        opacities,
-        settings,
-        scales=scales,
-        quaternions=quaternions,
-        shs=sh[:, :, :k],
-        alive_mask=alive,
-        ndc_offset=ndc_offset,
-        mode=mode,
-        dup_capacity=dup_capacity,
-        k_max=k_max,
-        tile_cap=tile_cap,
-        cap_a=cap_a,
-        big_cap=big_cap,
+    prep = preprocess_fields(
+        params.xyz, params.opacity_logit, params.log_scales, params.quaternions, params.sh_dc,
+        params.sh_rest, settings, alive_mask=alive, colors=colors, ndc_offset=ndc_offset,
     )
+    return rasterize_preprocessed(prep, settings, **raster_kw)

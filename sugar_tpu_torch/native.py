@@ -32,7 +32,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
-KERNELS = ("tile_composite", "tile_composite_bwd", "segsum", "binning")
+KERNELS = ("tile_composite", "tile_composite_bwd", "segsum", "binning", "preprocess")
 HOST_LIBS = ("qem",)  # csrc/<name>.cpp, compiled with CXX: host code, not kernels
 
 NVCC_FLAGS = (

@@ -27,9 +27,9 @@ host); :func:`to_device` moves the tensors inside dataclasses, dicts,
 lists and tuples.
 
 Each rank entry of the package reports its ranks' launches of the three
-compositing CUDA kernels and of the binning kernels
-(:func:`launches_by_rank`), so a caller can tell that a sharded stage ran
-them.
+compositing CUDA kernels, of the binning kernels and of the preprocess
+kernel (:func:`launches_by_rank`), so a caller can tell that a sharded
+stage ran them.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ import torch.multiprocessing as mp
 from torch.multiprocessing.spawn import ProcessException
 
 from sugar_tpu_torch.raster.fused import bin_fused_cuda
+from sugar_tpu_torch.raster.preprocess import preprocess_fields_cuda
 from sugar_tpu_torch.raster.segsum import segment_sum_cuda
 from sugar_tpu_torch.raster.tile_composite import tile_composite_bwd_cuda, tile_composite_cuda
 
@@ -91,18 +92,21 @@ def to_device(obj: Any, device) -> Any:
     return obj
 
 
-def kernel_launches() -> tuple[int, int, int, int]:
+def kernel_launches() -> tuple[int, int, int, int, int]:
     """This process's launches so far of K1, K2, K3 (the compositing
-    forward and backward and the gradient segment-sum) and of the binning
-    kernels (one a ``bin_fused`` call on the card)."""
+    forward and backward and the gradient segment-sum), of the binning
+    kernels (one a ``bin_fused`` call on the card) and of the preprocess
+    kernel (one a render of raw fields on the card that needs no
+    gradient)."""
     return (tile_composite_cuda.launches, tile_composite_bwd_cuda.launches,
-            segment_sum_cuda.launches, bin_fused_cuda.launches)
+            segment_sum_cuda.launches, bin_fused_cuda.launches,
+            preprocess_fields_cuda.launches)
 
 
-def launches_by_rank(since: tuple[int, ...]) -> list[tuple[int, int, int, int]]:
-    """Every rank's K1-K3 and binning launches since its own ``since`` (an
-    earlier :func:`kernel_launches`), gathered over the world in rank
-    order."""
+def launches_by_rank(since: tuple[int, ...]) -> list[tuple[int, int, int, int, int]]:
+    """Every rank's K1-K3, binning and preprocess launches since its own
+    ``since`` (an earlier :func:`kernel_launches`), gathered over the world
+    in rank order."""
     mine = tuple(a - b for a, b in zip(kernel_launches(), since))
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)

@@ -1,9 +1,11 @@
 """High-level rasterization API.
 
-Port of ``sugar_tpu/raster/api.py``: one function wires preprocess ->
-binning -> compositing. Outputs mirror the JAX package's (image, radii,
-final_T, n_contrib) plus the capacity diagnostics that ``raster.adaptive``
-reads.
+Port of ``sugar_tpu/raster/api.py``: ``rasterize_gaussians`` wires
+preprocess -> binning -> compositing; ``rasterize_preprocessed`` is its
+part after preprocess, for callers that preprocess another way
+(``models/render.py`` through ``preprocess_fields``). Outputs mirror the
+JAX package's (image, radii, final_T, n_contrib) plus the capacity
+diagnostics that ``raster.adaptive`` reads.
 
 The mode names are the JAX package's, so call sites carry over:
 
@@ -38,7 +40,7 @@ import torch
 from sugar_tpu_torch.raster import common as rc
 from sugar_tpu_torch.raster.binning import bin_gaussians, bin_gaussians_dense
 from sugar_tpu_torch.raster.fused import render_fused
-from sugar_tpu_torch.raster.preprocess import preprocess
+from sugar_tpu_torch.raster.preprocess import Preprocessed, preprocess
 from sugar_tpu_torch.raster.reference_impl import render_reference
 from sugar_tpu_torch.raster.tiled import render_tiled
 from sugar_tpu_torch.raster.twopass import render_twopass
@@ -109,7 +111,34 @@ def rasterize_gaussians(
         alive_mask=alive_mask,
         ndc_offset=ndc_offset,
     )
-    n = means3d.shape[0]
+    out = rasterize_preprocessed(
+        prep, settings, mode=mode, dup_capacity=dup_capacity, k_max=k_max,
+        tile_chunk=tile_chunk, tile_cap=tile_cap, cap_a=cap_a, big_cap=big_cap,
+    )
+    if debug:
+        _debug_snapshot(dict(
+            means3d=means3d, opacities=opacities, scales=scales, quaternions=quaternions,
+            colors=colors, shs=shs, image=out["image"],
+        ))
+    return out
+
+
+def rasterize_preprocessed(
+    prep: Preprocessed,
+    settings: rc.RasterSettings,
+    mode: str = "auto",
+    dup_capacity: int | None = None,
+    k_max: int = 1024,
+    tile_chunk: int = 64,
+    tile_cap: int | None = None,
+    cap_a: int = 4,
+    big_cap: int | None = None,
+) -> dict[str, Any]:
+    """Everything of ``rasterize_gaussians`` after preprocess: binning and
+    compositing of ``prep`` in ``mode``, and ``radii``. The arguments and
+    outputs are ``rasterize_gaussians``'s."""
+    mode = resolve_mode(mode)
+    n = prep.mean2d.shape[0]
     if dup_capacity is None:
         dup_capacity = 8 * n
     if tile_cap is None:
@@ -141,11 +170,6 @@ def rasterize_gaussians(
         out["cap_overflow"] = torch.clamp(binning.num_rendered - d, min=0)
         out["max_tiles_touched"] = prep.tiles_touched.max()
     out["radii"] = prep.radius
-    if debug:
-        _debug_snapshot(dict(
-            means3d=means3d, opacities=opacities, scales=scales, quaternions=quaternions,
-            colors=colors, shs=shs, image=out["image"],
-        ))
     return out
 
 

@@ -10,15 +10,30 @@ operands, which share a tie's gradient as JAX does.
 
 Dead/culled Gaussians are signalled by ``tiles_touched == 0`` rather than
 by compaction, keeping shapes fixed.
+
+``preprocess_fields`` starts from the model's raw fields (opacity logit,
+log scales, raw quaternions, SH DC and rest) and takes one of two routes:
+
+- ``preprocess_fields_cuda``, when the fields lie on a CUDA device and the
+  render needs no gradient (grad mode off, or no field requires grad): one
+  launch of the hand-written kernel of ``csrc/preprocess.cu``, which
+  applies the activations, evaluates SH and projects in one pass and reads
+  nothing to the host. It has no backward.
+- ``preprocess_fields_plain`` otherwise (every CPU tensor, every render
+  that needs its gradient): the activations and SH concat, then
+  ``preprocess``, differentiable. It is the kernel's plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
+from sugar_tpu_torch import native
 from sugar_tpu_torch.core import sh as sh_lib
+from sugar_tpu_torch.core.quaternions import normalize as quat_normalize
 from sugar_tpu_torch.raster import common as rc
 from sugar_tpu_torch.utils import profiling
 
@@ -161,8 +176,10 @@ def preprocess(
     either ``colors`` (N, C) or ``shs`` (N, C, K). ``alive_mask`` force-culls
     padded/dead slots. ``ndc_offset`` (N, 2) is added to the NDC means; it
     is zero in value and exists for its gradient (the densifier's
-    screen-space statistic).
+    screen-space statistic). While a profiler collects it counts 0 under
+    ``raster.preprocess_kernel`` (the kernel route counts 1).
     """
+    profiling.count("raster.preprocess_kernel", 0)
     n = means3d.shape[0]
     if cov3d is None:
         cov3d = _cov3d_channels(scales, quaternions, settings.scale_modifier)
@@ -239,3 +256,158 @@ def preprocess(
         rect_max=torch.stack([rmax_x, rmax_y], dim=-1),
         tiles_touched=tiles,
     )
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def fields_need_grad(*tensors) -> bool:
+    """Whether a render of these tensors (None skipped) needs its gradient:
+    grad mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def preprocess_fields(
+    xyz: torch.Tensor,
+    opacity_logit: torch.Tensor,
+    log_scales: torch.Tensor,
+    quaternions: torch.Tensor,
+    sh_dc: torch.Tensor,
+    sh_rest: torch.Tensor,
+    settings: rc.RasterSettings,
+    alive_mask: torch.Tensor | None = None,
+    colors: torch.Tensor | None = None,
+    ndc_offset: torch.Tensor | None = None,
+) -> Preprocessed:
+    """``Preprocessed`` from the model's raw fields: ``xyz`` (N, 3),
+    ``opacity_logit`` (N,), ``log_scales`` (N, 3), raw ``quaternions`` (N,
+    4), ``sh_dc`` (N, 3) and ``sh_rest`` (N, 3, K - 1), of which the
+    coefficients of ``settings.sh_degree`` are read; ``colors`` (N, C)
+    replaces SH. On a CUDA device, for a render that needs no gradient,
+    the kernel (``preprocess_fields_cuda``); otherwise the differentiable
+    torch ops (``preprocess_fields_plain``), until the kernel has a
+    backward."""
+    args = (xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, settings,
+            alive_mask, colors, ndc_offset)
+    if _on_card(xyz) and not fields_need_grad(
+            xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, colors, ndc_offset):
+        return preprocess_fields_cuda(*args)
+    return preprocess_fields_plain(*args)
+
+
+def preprocess_fields_plain(
+    xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, settings,
+    alive_mask=None, colors=None, ndc_offset=None,
+) -> Preprocessed:
+    """The plain version of ``preprocess_fields_cuda``: sigmoid, exp, the
+    quaternion normalisation and the SH concat (the ``render.setup``
+    span), then ``preprocess``. Differentiable in every field."""
+    with profiling.span("render.setup"):
+        opacities = torch.sigmoid(opacity_logit)
+        scales = torch.exp(log_scales)
+        quats = quat_normalize(quaternions)
+        shs = None
+        if colors is None:
+            k = (settings.sh_degree + 1) ** 2
+            shs = torch.cat([sh_dc[:, :, None], sh_rest], dim=-1)[:, :, :k]
+    return preprocess(xyz, opacities, settings, scales=scales, quaternions=quats,
+                      colors=colors, shs=shs, alive_mask=alive_mask, ndc_offset=ndc_offset)
+
+
+def _kernel_fn():
+    fn = native.load("preprocess").sugar_preprocess_fields
+    if fn.argtypes is None:
+        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([vp] * 6 + [i32, i32, vp, i32, vp, vp, vp, vp, vp, ctypes.c_longlong]
+                       + [i32] * 4 + [f32] * 5 + [vp] * 9 + [vp])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _checked(name: str, x: torch.Tensor, shape: tuple, dtype, dev) -> torch.Tensor:
+    if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+        raise ValueError(f"{name} must be {dtype} {shape} on {dev}, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    return x.contiguous()
+
+
+def preprocess_fields_cuda(
+    xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, settings,
+    alive_mask=None, colors=None, ndc_offset=None,
+) -> Preprocessed:
+    """The CUDA route of ``preprocess_fields``: one launch of
+    ``csrc/preprocess.cu`` on the current stream, inside a
+    ``raster.preprocess`` span. Reads nothing to the host and copies
+    nothing to the card (the camera is read where it lies). Carries no
+    gradient: raises when the render needs one.
+    ``preprocess_fields_cuda.launches`` counts successful calls; while a
+    profiler collects it counts 1 under ``raster.preprocess_kernel``."""
+    if fields_need_grad(xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, colors,
+                        ndc_offset):
+        raise ValueError("preprocess_fields_cuda has no backward; the render needs a gradient")
+    n, dev = xyz.shape[0], xyz.device
+    if not 0 <= settings.sh_degree <= 4:
+        raise ValueError(f"SH degree {settings.sh_degree} is outside 0..4")
+    f32 = torch.float32
+    xyz = _checked("xyz", xyz, (n, 3), f32, dev)
+    opacity_logit = _checked("opacity_logit", opacity_logit, (n,), f32, dev)
+    log_scales = _checked("log_scales", log_scales, (n, 3), f32, dev)
+    quaternions = _checked("quaternions", quaternions, (n, 4), f32, dev)
+    rest = sh_rest.shape[-1]
+    if colors is None:
+        need = (settings.sh_degree + 1) ** 2 - 1
+        if need > rest:
+            raise ValueError(f"SH degree {settings.sh_degree} needs {need} rest coefficients, "
+                             f"sh_rest has {tuple(sh_rest.shape)}")
+        sh_dc = _checked("sh_dc", sh_dc, (n, 3), f32, dev)
+        sh_rest = _checked("sh_rest", sh_rest, (n, 3, rest), f32, dev)
+        ch = 3
+    else:
+        sh_dc = sh_rest = None
+        ch = colors.shape[-1]
+        colors = _checked("colors", colors, (n, ch), f32, dev)
+    if alive_mask is not None:
+        alive_mask = _checked("alive_mask", alive_mask, (n,), torch.bool, dev)
+    if ndc_offset is not None:
+        ndc_offset = _checked("ndc_offset", ndc_offset, (n, 2), f32, dev)
+    view = _checked("viewmatrix", settings.viewmatrix, (4, 4), f32, dev)
+    proj = _checked("projmatrix", settings.projmatrix, (4, 4), f32, dev)
+    campos = _checked("campos", settings.campos, (3,), f32, dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    with profiling.span("raster.preprocess"):
+        prep = Preprocessed(
+            mean2d=torch.empty((n, 2), dtype=f32, device=dev),
+            depth=torch.empty((n,), dtype=f32, device=dev),
+            conic=torch.empty((n, 3), dtype=f32, device=dev),
+            opacity=torch.empty((n,), dtype=f32, device=dev),
+            color=torch.empty((n, ch), dtype=f32, device=dev),
+            radius=torch.empty((n,), dtype=torch.int32, device=dev),
+            rect_min=torch.empty((n, 2), dtype=torch.int32, device=dev),
+            rect_max=torch.empty((n, 2), dtype=torch.int32, device=dev),
+            tiles_touched=torch.empty((n,), dtype=torch.int32, device=dev),
+        )
+        with torch.cuda.device(dev):
+            err = _kernel_fn()(
+                xyz.data_ptr(), opacity_logit.data_ptr(), log_scales.data_ptr(),
+                quaternions.data_ptr(), ptr(sh_dc), ptr(sh_rest), rest, settings.sh_degree,
+                ptr(colors), ch, ptr(alive_mask),
+                ptr(ndc_offset), view.data_ptr(), proj.data_ptr(), campos.data_ptr(), n,
+                settings.image_width, settings.image_height, settings.tiles_x,
+                settings.tiles_y, settings.focal_x, settings.focal_y,
+                rc.FOV_CLAMP * settings.tanfovx, rc.FOV_CLAMP * settings.tanfovy,
+                settings.scale_modifier,
+                *(getattr(prep, f.name).data_ptr() for f in dataclasses.fields(Preprocessed)),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"preprocess kernel launch failed: CUDA error {err}")
+        preprocess_fields_cuda.launches += 1
+        profiling.count("raster.preprocess_kernel", 1)
+    return prep
+
+
+preprocess_fields_cuda.launches = 0
