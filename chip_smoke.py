@@ -14,8 +14,8 @@ together), then:
    binning kernels (``csrc/binning.cu`` through ``bin_fused`` on CUDA
    tensors, the torch route made to raise, under
    ``torch.cuda.set_sync_debug_mode("error")``) to their plain version
-   ``bin_fused_plain`` bit for bit (gid, tile ranges, culled counts, every
-   counter) and to a second call, with one launch a call: on the five cases
+   ``bin_fused_plain`` bit for bit (gid, tile ranges, culled counts, the
+   card route's counters) and to a second call, with one launch a call: on the five cases
    of tests/test_torch_binning.py, on planted splats whose rects exceed 300
    tiles (the warp path), on a tile of 100,000 slots (the large sort's
    merge rounds) with and without a capacity that cuts it, on a 4096x3840
@@ -1202,7 +1202,7 @@ BIN_CASES = {
     "bucket_a_only": (25, 48, 96, 16, 16, 300, 8192),
 }
 BIN_KEYS = ("gid", "tile_start", "tile_count", "counts_culled", "num_rendered", "overflow",
-            "inexact", "big_overflow", "num_big")
+            "inexact", "big_overflow", "cap_overflow")
 BIN_PLANT_HW = 512
 BIN_PLANT_MIN_RECT = 300  # the planted splats' rects, in tiles: the warp path
 BIN_DEEP_N = 100_000  # Gaussians stacked over one pixel: a tile past 32,768 slots
@@ -1343,7 +1343,7 @@ def check_binning(check, label: str, prep, args) -> dict:
     """``bin_fused`` on the card (the torch route refused, under
     ``set_sync_debug_mode("error")``) against ``bin_fused_plain``, bit for
     bit, and against a second call; with its launches."""
-    num_tiles, tiles_x, tile_cap, cap_a, _big_cap, capacity = args
+    num_tiles, tiles_x, *_, capacity = args
 
     def refuse(*a, **k):
         raise AssertionError("bin_fused took the torch route on CUDA tensors")
@@ -1358,7 +1358,7 @@ def check_binning(check, label: str, prep, args) -> dict:
         again = fused_mod.bin_fused(prep, *args)
     torch.cuda.synchronize()
     launches = fused_mod.bin_fused_cuda.launches - l0
-    plain = fused_mod.bin_fused_plain(prep, num_tiles, tiles_x, tile_cap, cap_a, capacity)
+    plain = fused_mod.bin_fused_plain(prep, num_tiles, tiles_x, capacity)
     torch.cuda.synchronize()
     bad, rep = binning_differs(kern, plain), binning_differs(kern, again)
     err = max(int((kern[k].to(torch.int64) - plain[k].to(torch.int64)).abs().max())
@@ -1367,7 +1367,7 @@ def check_binning(check, label: str, prep, args) -> dict:
     d = dict(n=tt.shape[0], tiles=num_tiles, max_rect=int(tt.max()),
              warp_rects=int((tt > 32).sum()), num_rendered=int(kern["num_rendered"]),
              d_pad=int(kern["gid"].shape[0]), deepest=int(kern["tile_count"].max()),
-             overflow=int(kern["overflow"]), num_big=int(kern["num_big"]),
+             overflow=int(kern["overflow"]), cap_overflow=int(kern["cap_overflow"]),
              differ=bad, differ_again=rep, max_abs_err=err, launches=launches)
     print(f"[2b] binning, {label}: {json.dumps(d)}")
     check(not bad, f"[2b] binning kernels equal their plain version bit for bit, {label}")
@@ -1388,13 +1388,12 @@ def time_binning(label: str, prep, args, kern: dict) -> dict:
     """Device ms of ``bin_fused`` on the card, of the torch route at the
     same caps (bin_fused_torch), of the plain version, and of
     ``torch.sort`` of the kept slots' [tile | rank] keys; the bytes bound."""
-    num_tiles, tiles_x, tile_cap, cap_a, big_cap, capacity = args
+    num_tiles, tiles_x, *_, capacity = args
     n = prep.tiles_touched.shape[0]
     with torch.no_grad():
         ms = cuda_ms(lambda: fused_mod.bin_fused(prep, *args), BIN_REPS)
         torch_ms = cuda_ms(lambda: fused_mod.bin_fused_torch(prep, *args), 5)
-        plain_ms = cuda_ms(lambda: fused_mod.bin_fused_plain(
-            prep, num_tiles, tiles_x, tile_cap, cap_a, capacity), 3)
+        plain_ms = cuda_ms(lambda: fused_mod.bin_fused_plain(prep, num_tiles, tiles_x, capacity), 3)
         _, rank = fused_mod.depth_rank(prep)
         live = kern["gid"] < n
         tile = torch.repeat_interleave(torch.arange(num_tiles, device=prep.depth.device),

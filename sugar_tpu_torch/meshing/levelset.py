@@ -72,7 +72,7 @@ def level_surface_points_one_camera(
 ) -> dict:
     """Returns dict(points (P,3), normals (P,3), gaussian_idx (P,), valid
     (P,) bool, depth (H,W)) with P = H*W (masked), plus the depth render's
-    overflow counters (``raster.adaptive._OVF_KEYS``), on the params'
+    overflow counters (``raster.adaptive.overflow_counters``), on the params'
     device."""
     dev = params.xyz.device
     h, w = camera.height, camera.width
@@ -146,7 +146,7 @@ def level_surface_points_one_camera(
     normals = -grad / torch.clamp_min(torch.linalg.norm(grad, dim=-1, keepdim=True), 1e-12)
 
     out = dict(points=pts_int, normals=normals, gaussian_idx=g0, valid=valid, depth=depth)
-    out.update({k: depth_out[k] for k in adaptive._OVF_KEYS if k in depth_out})
+    out.update(adaptive.overflow_counters(depth_out))
     return out
 
 

@@ -12,8 +12,8 @@ matching capacity grows and the view is rendered again:
   ``tile_cap``, ``cap_a`` and ``big_cap`` bound the CPU route of
   ``raster.fused.bin_fused`` and the tile-sharded path
   (``parallel/render.py``) only. On the card ``bin_fused`` bins every
-  rect tile, so neither counter rises there and the two caps never grow
-  (``tile_cap`` still sets the ``num_big`` it reports).
+  rect tile, so neither counter rises there and the two caps never grow;
+  it reports no ``max_tiles_touched`` or ``num_big``.
 - ``dup_capacity`` — total duplication slots. Counter: ``cap_overflow``.
   Grows to ``num_rendered`` plus slack, rounded to the chunk size.
 - ``k_max``        — per-tile compositing depth. Counter:
@@ -21,7 +21,7 @@ matching capacity grows and the view is rendered again:
 
 ``render_adaptive`` loops until all counters are zero, so one call gives
 the exact uncapped image. ``CapState`` is the lag-checked form the
-trainers use.
+trainers use (``CapState.check_lagged``).
 """
 
 from __future__ import annotations
@@ -107,6 +107,21 @@ _OVF_KEYS = (
 )
 
 
+# The counters the training loops log.
+LOGGED_OVERFLOW = ("bin_overflow", "big_overflow", "cap_overflow", "tile_overflow")
+HOT_STEPS, CHECK_EVERY = 50, 10  # CapState.check_lagged's cadence
+
+
+def overflow_counters(out: dict[str, Any]) -> dict[str, Any]:
+    """The overflow counters a render output holds, unread."""
+    return {k: out[k] for k in _OVF_KEYS if k in out}
+
+
+def logged_overflow(aux: dict[str, Any]) -> dict[str, int]:
+    """The counters of ``LOGGED_OVERFLOW`` that ``aux`` holds, as host ints."""
+    return read_overflow({k: aux[k] for k in LOGGED_OVERFLOW if k in aux})
+
+
 @profiling.spanned("caps.read")
 def read_overflow(out: dict[str, Any]) -> dict[str, int]:
     """Fetch the overflow diagnostics of a render output as host ints (one
@@ -162,8 +177,8 @@ def render_adaptive(
 class CapState:
     """Lag-checked capacity state for training loops.
 
-    The trainer calls ``observe(aux)`` with the PREVIOUS step's output;
-    when an overflow is seen the caps grow and ``version`` bumps.
+    The trainer calls ``check_lagged(it, aux)`` after each step; when the
+    PREVIOUS step overflowed the caps grow and ``version`` bumps.
     """
 
     def __init__(self, caps: RasterCaps, log_fn=None):
@@ -171,6 +186,27 @@ class CapState:
         self.version = 0
         self.log_fn = log_fn
         self.grow_events: list[dict] = []
+        self.prev_aux: dict[str, Any] | None = None
+        self.hot_until: int | None = None
+
+    def check_lagged(self, it: int, aux: dict[str, Any]) -> bool:
+        """Given step ``it``'s output ``aux``, observe the previous step's
+        counters: every step for ``HOT_STEPS`` iterations after the first
+        call (a start or a resume) or a growth, then every
+        ``CHECK_EVERY``-th, as the JAX package's loops do. The check after a
+        growth still reads a step rendered at the old caps, so one overflow
+        can grow the caps twice (ROADMAP.md, queue 5, "double growth").
+        True when the caps grew: the caller drops its steps built for the
+        old caps."""
+        if self.hot_until is None:
+            self.hot_until = it + HOT_STEPS
+        grew = False
+        if self.prev_aux is not None and (it < self.hot_until or it % CHECK_EVERY == 0):
+            grew = self.observe(self.prev_aux)
+            if grew:
+                self.hot_until = it + HOT_STEPS
+        self.prev_aux = aux
+        return grew
 
     def key(self) -> tuple:
         return (self.caps.tile_cap, self.caps.dup_capacity, self.caps.k_max,

@@ -31,8 +31,9 @@ render data into dup order (``dup_gather``), then per-tile compositing
   index order (the depth sort is stable), as in the CUDA rasterizer's
   [tileID | depth] radix sort.
 
-Every diagnostic counter of the JAX package is kept; ``raster.adaptive``
-grows the capacities from them.
+The CPU route keeps every diagnostic counter of the JAX package; the card
+route returns those of the one capacity it has. ``raster.adaptive`` grows
+the capacities from them.
 """
 
 from __future__ import annotations
@@ -305,32 +306,27 @@ def bin_fused_torch(
         overflow=rect_overflow + big_overflow + cap_overflow,
         inexact=big_overflow + cap_overflow,
         big_overflow=big_overflow,
+        cap_overflow=cap_overflow,
         num_big=_num_big(prep, tile_cap, cap_a),
+        max_tiles_touched=prep.tiles_touched.max(),
     )
 
 
 @torch.no_grad()
-def bin_fused_plain(
-    prep: Preprocessed,
-    num_tiles: int,
-    tiles_x: int,
-    tile_cap: int,
-    cap_a: int,
-    capacity: int,
-) -> dict:
+def bin_fused_plain(prep: Preprocessed, num_tiles: int, tiles_x: int, capacity: int) -> dict:
     """The plain version of ``bin_fused_cuda``: ``bin_fused_torch`` at
     covering caps (tile_cap = cap_a = the largest rect, so bucket A holds
-    every rect tile), with ``num_big`` counted at the caller's caps. It
-    reads the largest rect to the host, and its expansion costs n x that
-    many slots."""
+    every rect tile), with the card route's counters. It reads the largest
+    rect to the host, and its expansion costs n x that many slots."""
     n = prep.tiles_touched.shape[0]
     cover = max(1, int(prep.tiles_touched.max())) if n else 1
     b = bin_fused_torch(prep, num_tiles, tiles_x, cover, cover, n, capacity)
-    b["num_big"] = _num_big(prep, tile_cap, cap_a)
+    del b["num_big"], b["max_tiles_touched"]
     return b
 
 
 def _num_big(prep: Preprocessed, tile_cap: int, cap_a: int) -> torch.Tensor:
+    """The CPU route's Gaussians whose capped rect spills past bucket A."""
     return (torch.clamp(prep.tiles_touched, max=tile_cap) > min(cap_a, tile_cap)).sum(
         dtype=torch.int64)
 
@@ -381,19 +377,12 @@ def _check_cuda_inputs(prep: Preprocessed, num_tiles: int, tiles_x: int) -> None
 
 
 @torch.no_grad()
-def bin_fused_cuda(
-    prep: Preprocessed,
-    num_tiles: int,
-    tiles_x: int,
-    tile_cap: int,
-    cap_a: int,
-    capacity: int,
-) -> dict:
+def bin_fused_cuda(prep: Preprocessed, num_tiles: int, tiles_x: int, capacity: int) -> dict:
     """The CUDA route of ``bin_fused``: ``csrc/binning.cu`` on the current
-    stream (count, scan, emit, per-tile order). Every rect tile is tested
-    (``tile_cap`` and ``cap_a`` count only in ``num_big``, as on the CPU
-    route); ``overflow`` = ``inexact`` = the slots past ``capacity``,
-    ``big_overflow`` 0. Any frame size: past 24,576 tiles (a 4K frame has
+    stream (count, scan, emit, per-tile order). Every rect tile is tested,
+    so only the capacity bounds it: ``overflow`` = ``inexact`` =
+    ``cap_overflow`` = the slots past it, ``big_overflow`` 0, all written
+    by the kernels. Any frame size: past 24,576 tiles (a 4K frame has
     32,400) the count and emit passes keep their per-block tile histograms
     in global memory instead of shared memory. Reads nothing to the host.
     ``bin_fused_cuda.launches`` counts successful calls (six kernels each).
@@ -448,7 +437,7 @@ def bin_fused_cuda(
         overflow=stats[1],
         inexact=stats[1],
         big_overflow=stats[2],
-        num_big=_num_big(prep, tile_cap, cap_a),
+        cap_overflow=stats[1],
     )
 
 
@@ -468,19 +457,20 @@ def bin_fused(
 ) -> dict:
     """Support-culled binning. Carries no gradient (the support and order
     decisions are not differentiable, as CUDA's rect is not). CUDA tensors
-    go through ``bin_fused_cuda`` (``big_cap`` unused, ``tile_cap`` and
-    ``cap_a`` only for ``num_big``), CPU tensors through
-    ``bin_fused_torch``.
+    go through ``bin_fused_cuda`` (``tile_cap``, ``cap_a`` and ``big_cap``
+    unused), CPU tensors through ``bin_fused_torch``.
 
     Returns dict(gid (D_pad,), tile_start (T,), tile_count (T,),
     counts_culled (N,), num_rendered (), overflow (), inexact (),
-    big_overflow (), num_big ()) where D_pad is the chunk-aligned capacity
-    plus one chunk and ``gid`` holds the sentinel n on invalid/padding
-    slots. ``inexact`` counts real dup slots dropped by big_cap/capacity
-    truncation; ``overflow`` adds the rect slots past ``tile_cap``.
+    big_overflow (), cap_overflow ()) where D_pad is the chunk-aligned
+    capacity plus one chunk and ``gid`` holds the sentinel n on
+    invalid/padding slots. ``inexact`` counts real dup slots dropped by
+    big_cap/capacity truncation; ``overflow`` adds the rect slots past
+    ``tile_cap``. The CPU route adds ``num_big`` and
+    ``max_tiles_touched``, which size its rect and bucket caps.
     """
     if prep.mean2d.is_cuda:
-        return bin_fused_cuda(prep, num_tiles, tiles_x, tile_cap, cap_a, capacity)
+        return bin_fused_cuda(prep, num_tiles, tiles_x, capacity)
     if prep.mean2d.device.type == "cpu":
         return bin_fused_torch(prep, num_tiles, tiles_x, tile_cap, cap_a, big_cap, capacity)
     raise ValueError(f"no binning path for device {prep.mean2d.device}")
@@ -554,7 +544,8 @@ def render_fused(
     Overflow of ``tile_cap`` and ``big_cap`` (see ``bin_and_gather``),
     which bound the CPU route of ``bin_fused`` only, is reported in
     ``big_overflow`` and ``bin_overflow`` and handled by
-    ``raster.adaptive`` like every other capacity. Differentiable in
+    ``raster.adaptive`` like every other capacity; the counters are the
+    ones ``bin_fused``'s route returned. Differentiable in
     ``prep``'s mean2d, conic, opacity and color (and ``settings.bg``);
     binning carries no gradient, as the JAX package's
     ``stop_gradient(prep)``.
@@ -568,12 +559,9 @@ def render_fused(
         b["tile_start"], b["tile_count"], dup_data, settings.bg, settings.tiles_x, ch, max_chunks
     )
 
+    counters = ("big_overflow", "num_big", "num_rendered", "cap_overflow", "max_tiles_touched")
     return dict(
         **composite_outputs(img_t, final_t, n_contrib, b["tile_count"], max_chunks, settings),
         bin_overflow=b["overflow"],
-        big_overflow=b["big_overflow"],
-        num_big=b["num_big"],
-        num_rendered=b["num_rendered"],
-        cap_overflow=torch.clamp(b["num_rendered"] - capacity, min=0),
-        max_tiles_touched=prep.tiles_touched.max(),
+        **{k: b[k] for k in counters if k in b},
     )

@@ -34,7 +34,6 @@ from sugar_tpu_torch.raster.api import rasterize_gaussians
 from sugar_tpu_torch.refine import bound as B
 from sugar_tpu_torch.trainers import optimizer as opt
 from sugar_tpu_torch.trainers.schedule import CameraSchedule
-from sugar_tpu_torch.trainers.vanilla import _LOGGED_OVERFLOW
 from sugar_tpu_torch.utils import checkpoint as ckpt
 from sugar_tpu_torch.utils import losses, profiling
 
@@ -205,7 +204,7 @@ def refine_loss(
             )
         with torch.no_grad():
             aux = dict(psnr=losses.psnr(img.detach(), gt))
-    aux.update({k: out[k] for k in adaptive._OVF_KEYS if k in out})
+    aux.update(adaptive.overflow_counters(out))
     return loss, aux
 
 
@@ -301,8 +300,6 @@ def refined_training(
     sched = CameraSchedule(seed, len(cameras))
     step_cache: dict[tuple, Callable] = {}
     t0 = time.time()
-    prev_aux = None
-    hot_until = start_iteration + 50
     gt_cache: dict[int, torch.Tensor] = {}  # device-resident GT images
 
     for it in range(start_iteration, cfg.num_iterations):
@@ -315,27 +312,20 @@ def refined_training(
         if gt is None:
             gt = gt_cache[ci] = torch.as_tensor(images[ci], dtype=torch.float32, device=device)
         params, adam, aux = step_cache[skey](params, adam, cameras[ci], gt, it)
-        # Lagged overflow check at the JAX package's cadence: every step
-        # for the 50 iterations after a cap change, then every 10th. A
-        # grown cap takes effect from the next checked iteration.
-        if prev_aux is not None and (it < hot_until or it % 10 == 0):
-            if cap_state.observe(prev_aux):
-                step_cache.clear()
-                hot_until = it + 50
-        prev_aux = aux
+        if cap_state.check_lagged(it, aux):
+            step_cache.clear()
         if checkpoint_dir and (it + 1) in cfg.checkpoint_iterations:
             ckpt.save_milestone(
                 checkpoint_dir, it + 1,
                 dict(params=params, adam=adam, iteration=it + 1),
             )
         if log_fn and ((it + 1) % cfg.log_every == 0):
-            ovf = adaptive.read_overflow(aux)
             log_fn(
                 dict(
                     iter=it + 1,
                     loss=float(aux["loss"]),
                     psnr=float(aux["psnr"]),
-                    **{name: ovf[name] for name in _LOGGED_OVERFLOW if name in ovf},
+                    **adaptive.logged_overflow(aux),
                     elapsed_s=time.time() - t0,
                 )
             )

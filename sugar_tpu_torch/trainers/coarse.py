@@ -53,7 +53,6 @@ from sugar_tpu_torch.raster import common as rc
 from sugar_tpu_torch.raster.api import rasterize_gaussians
 from sugar_tpu_torch.trainers import optimizer as opt
 from sugar_tpu_torch.trainers.schedule import CameraSchedule, iteration_generator
-from sugar_tpu_torch.trainers.vanilla import _LOGGED_OVERFLOW
 from sugar_tpu_torch.utils import checkpoint as ckpt
 from sugar_tpu_torch.utils import losses
 
@@ -228,7 +227,7 @@ def coarse_loss(
     with torch.no_grad():
         aux = dict(loss=loss.detach(), psnr=losses.psnr(img.detach(), gt),
                    n_visible=visible.sum(dtype=torch.int32))
-    aux.update({k: out[k] for k in adaptive._OVF_KEYS if k in out})
+    aux.update(adaptive.overflow_counters(out))
     return loss, aux
 
 
@@ -398,8 +397,6 @@ def train_coarse(
     sched = CameraSchedule(seed, len(scene_cameras))
     step_cache: dict = {}
     t0 = time.time()
-    prev_aux = None
-    hot_until = start_iteration + 50
     gt_cache: dict[int, torch.Tensor] = {}
 
     for it in range(start_iteration, cfg.num_iterations):
@@ -429,14 +426,8 @@ def train_coarse(
             params, alive, adam, knn_idx, scene_cameras[ci], gt, it,
             iteration_generator(seed, it, dev),
         )
-        # Lagged overflow check, at the JAX package's cadence (every step
-        # for the 50 iterations after a cap change, then every 10th); it
-        # keeps the JAX package's double growth (ROADMAP.md, queue 3).
-        if prev_aux is not None and (it < hot_until or it % 10 == 0):
-            if cap_state.observe(prev_aux):
-                step_cache.clear()
-                hot_until = it + 50
-        prev_aux = aux
+        if cap_state.check_lagged(it, aux):
+            step_cache.clear()
 
         if iteration in cfg.prune_at:
             op = torch.sigmoid(params.opacity_logit)
@@ -451,14 +442,13 @@ def train_coarse(
             )
 
         if log_fn and (iteration % cfg.log_every == 0):
-            ovf = adaptive.read_overflow(aux)
             log_fn(
                 dict(
                     iter=iteration,
                     loss=float(aux["loss"]),
                     psnr=float(aux["psnr"]),
                     n_alive=int(alive.sum()),
-                    **{name: ovf[name] for name in _LOGGED_OVERFLOW if name in ovf},
+                    **adaptive.logged_overflow(aux),
                     elapsed_s=time.time() - t0,
                 )
             )

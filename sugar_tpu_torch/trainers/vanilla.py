@@ -39,9 +39,6 @@ from sugar_tpu_torch.utils import checkpoint as ckpt
 from sugar_tpu_torch.utils import losses, profiling
 from sugar_tpu_torch.viewer.network_gui import camera_from_message
 
-_LOGGED_OVERFLOW = ("bin_overflow", "big_overflow", "cap_overflow", "tile_overflow")
-
-
 @dataclasses.dataclass
 class TrainConfig:
     iterations: int = 7_000
@@ -115,7 +112,7 @@ def make_train_step(
         )
         new_stats = dens.update_stats(stats, grads[-1], out["radii"])
         aux = dict(loss=loss.detach(), psnr=psnr, radii=out["radii"])
-        aux.update({k: out[k] for k in adaptive._OVF_KEYS if k in out})
+        aux.update(adaptive.overflow_counters(out))
         return new_params, new_adam, new_stats, aux
 
     return step_fn
@@ -194,8 +191,6 @@ def train_vanilla_3dgs(
 
     step_cache: dict[tuple, Callable] = {}
     t0 = time.time()
-    prev_aux = None
-    hot_until = start_iteration + 50
     gt_cache: dict[int, torch.Tensor] = {}
 
     @torch.no_grad()
@@ -223,16 +218,8 @@ def train_vanilla_3dgs(
         params, adam, stats, aux = step_cache[skey](
             params, alive, adam, stats, scene_cameras[ci], gt, it
         )
-        # Lagged overflow check, at the JAX package's cadence: every step
-        # for the 50 iterations after a cap change, then every 10th. As in
-        # the JAX package, the check reads the previous step's counters
-        # after a regrowth too, so one overflow can grow the caps twice
-        # (ROADMAP.md, queue 3, "double growth").
-        if prev_aux is not None and (it < hot_until or it % 10 == 0):
-            if cap_state.observe(prev_aux):
-                step_cache.clear()
-                hot_until = it + 50
-        prev_aux = aux
+        if cap_state.check_lagged(it, aux):
+            step_cache.clear()
 
         it1 = it + 1
         if cfg.densify_from < it1 <= cfg.densify_until and it1 % cfg.densify_every == 0:
@@ -265,14 +252,13 @@ def train_vanilla_3dgs(
             )
 
         if log_fn and (it1 % cfg.log_every == 0 or it1 == cfg.iterations):
-            ovf = adaptive.read_overflow(aux)
             log_fn(
                 {
                     "iter": it1,
                     "loss": float(aux["loss"]),
                     "psnr": float(aux["psnr"]),
                     "n_alive": int(alive.sum()),
-                    **{k: ovf[k] for k in _LOGGED_OVERFLOW if k in ovf},
+                    **adaptive.logged_overflow(aux),
                     "elapsed_s": time.time() - t0,
                 }
             )

@@ -7,7 +7,8 @@ equal, and so must every counter.
 
 Beside the five cases, the plain version of the card's binning kernels
 (``bin_fused_plain``: no rect or bucket cap) is held to the JAX package's
-``bin_fused`` at covering caps on every case (``<case>:plain_vs_jax``).
+``bin_fused`` at covering caps on every case (``<case>:plain_vs_jax``),
+on the counters it has: ``num_big`` sizes the caps it lacks.
 """
 
 import jax.numpy as jnp
@@ -37,7 +38,7 @@ CASES = {
     "bucket_a_only": (25, 48, 96, 16, 16, 300, 8192),
 }
 ARRAYS = ["gid", "tile_start", "tile_count", "counts_culled"]
-COUNTERS = ["num_rendered", "overflow", "inexact", "big_overflow", "num_big"]
+COUNTERS = ["num_rendered", "overflow", "inexact", "big_overflow"]
 PLAIN_VS_JAX = [f"{case}:plain_vs_jax" for case in CASES]
 COMPARED = list(CASES) + PLAIN_VS_JAX
 
@@ -79,10 +80,10 @@ def binned(case):
         if not plain:
             _cache[case] = (jfused.bin_fused(jprep, *args), tfused.bin_fused(tprep, *args))
         else:
-            num_tiles, tiles_x, tile_cap, cap_a, _big_cap, capacity = args
+            num_tiles, tiles_x, _tile_cap, cap_a, _big_cap, capacity = args
             n = tprep.tiles_touched.shape[0]
             covering = (num_tiles, tiles_x, int(tprep.tiles_touched.max()), cap_a, n, capacity)
-            got = tfused.bin_fused_plain(tprep, num_tiles, tiles_x, tile_cap, cap_a, capacity)
+            got = tfused.bin_fused_plain(tprep, num_tiles, tiles_x, capacity)
             _cache[case] = (jfused.bin_fused(jprep, *covering), got)
     return _cache[case]
 
@@ -97,8 +98,9 @@ def test_bin_fused_arrays_bit_equal(case, key):
 @pytest.mark.parametrize("case", COMPARED)
 def test_bin_fused_counters_equal(case):
     jb, tb = binned(case)
-    got = {k: int(tb[k]) for k in COUNTERS}
-    want = {k: int(jb[k]) for k in COUNTERS}
+    keys = COUNTERS if case.endswith(":plain_vs_jax") else COUNTERS + ["num_big"]
+    got = {k: int(tb[k]) for k in keys}
+    want = {k: int(jb[k]) for k in keys}
     assert got == want
 
 
@@ -114,11 +116,15 @@ def test_cases_exercise_what_they_name():
 @pytest.mark.parametrize("case", list(CASES))
 def test_plain_drops_only_past_the_capacity(case):
     """The kernels' plain version has no rect or bucket cap: overflow =
-    inexact = the slots past the capacity, big_overflow 0."""
+    inexact = cap_overflow = the slots past the capacity, big_overflow 0,
+    and neither num_big nor max_tiles_touched (the card route's counter
+    set)."""
     _, tprep, (num_tiles, tiles_x, tile_cap, cap_a, _big_cap, capacity) = inputs(case)
     got = binned(f"{case}:plain_vs_jax")[1]
     past = max(int(got["num_rendered"]) - capacity, 0)
     assert (int(got["overflow"]), int(got["inexact"]), int(got["big_overflow"])) == (past, past, 0)
+    assert int(got["cap_overflow"]) == int(got["overflow"])
+    assert "num_big" not in got and "max_tiles_touched" not in got
     n = tprep.tiles_touched.shape[0]
     assert int(got["num_rendered"]) == int(got["counts_culled"].sum())
     assert got["gid"].shape == (tfused.dup_pad(capacity),)

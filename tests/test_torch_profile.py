@@ -202,6 +202,10 @@ def test_profile_trained_preprocess_matches_jax(scene):
 def test_profile_trained_binning_matches_jax(scene):
     s = trained_pair(scene)
     jb, tb = s["jax"]["bins"], s["port"]["bins"]
+    # The CPU route also returns the two counters that the JAX package's
+    # render_fused derives from its binning.
+    jb = dict(jb, cap_overflow=jnp.maximum(jb["num_rendered"] - FUSED_CAPACITY, 0),
+              max_tiles_touched=jnp.max(s["jax"]["prep"].tiles_touched))
     assert set(tb) == set(jb)
     for k in jb:
         assert_close(k, tb[k], jb[k])

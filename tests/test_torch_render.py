@@ -185,6 +185,45 @@ def test_cap_state_observes_and_grows():
     assert len(state.grow_events) == 1 and len(state.key()) == 5
 
 
+def test_cap_state_lagged_cadence():
+    """``check_lagged`` over 80 iterations from 7: every step observed for
+    50 iterations after the start or a growth, then every 10th, each time
+    on the previous step's counters. Step 20 overflows (growth at 21, hot
+    until 71), step 74's overflow is skipped by the cadence, and steps 79
+    and 80 overflow at the old caps, so the caps grow twice (80 and 81)."""
+    start, stop = 7, 87
+    overflowing = {20, 74, 79, 80}
+
+    def aux(it):
+        over = it in overflowing
+        return dict(num_rendered=torch.tensor(2000 if over else 500),
+                    cap_overflow=torch.tensor(976 if over else 0),
+                    bin_overflow=torch.tensor(976 if over else 0),
+                    tile_overflow=torch.tensor(0))
+
+    state = adaptive.CapState(adaptive.RasterCaps(dup_capacity=1024))
+    observed, grew, caps = [], [], []
+    observe = state.observe
+    state.observe = lambda a: observed.append(it) or observe(a)
+    for it in range(start, stop):
+        if state.check_lagged(it, aux(it)):
+            grew.append(it)
+            caps.append(state.caps.dup_capacity)
+
+    # The rule the loops inlined before CapState owned it.
+    want_observed, want_grew, prev, hot_until = [], [], None, start + 50
+    for it in range(start, stop):
+        if prev is not None and (it < hot_until or it % 10 == 0):
+            want_observed.append(it)
+            if prev in overflowing:
+                want_grew.append(it)
+                hot_until = it + 50
+        prev = it
+    assert observed == want_observed == [*range(8, 71), *range(80, 87)]
+    assert grew == want_grew == [21, 80, 81]
+    assert caps == [2560, 2816, 3072] and state.version == 3
+
+
 def test_render_params_equals_render_model():
     d, alive = model_arrays()
     model = model_from_numpy(d, alive, 3, device="cpu")

@@ -329,6 +329,63 @@ def test_trainer_refuses_unported_options():
     assert len(losses) == 2 and all(np.isfinite(losses))
 
 
+def _cap_grow_records(logs):
+    """(iteration checked, old caps, new caps, counters read) of each
+    ``cap_grow`` record; with ``log_every=1`` the record of iteration ``it``
+    follows the log line of ``iter == it``."""
+    out, it = [], None
+    for e in logs:
+        it = e.get("iter", it)
+        if e.get("event") == "cap_grow":
+            out.append((it, e["old"], e["new"], e["overflow"]))
+    return out
+
+
+def test_trainer_cap_growth_matches_jax():
+    """Both packages' vanilla loops, in the tiled mode, from iteration 5 on
+    80 cameras at a 64-slot duplication capacity: the lagged check grows the
+    caps at the same iterations to the same caps. With every learning rate 0
+    the counters depend on the camera alone. The far cameras overflow from
+    the start: step 5 is read at 6 and step 6, still at the old caps, at 7,
+    so the caps grow twice (the JAX package's double growth). The near
+    cameras come at steps 63 and 69, after the 50 hot iterations: step 63's
+    overflow falls between the every-10th checks and is missed, step 69's is
+    read at 70."""
+    seed, start, stop, hw = 0, 5, 85, 64
+    sched = CameraSchedule(seed, 80)
+    near = {sched.index(63), sched.index(69)}
+    g = np.random.default_rng(9)
+    pts = (g.normal(size=(60, 3)) * 0.5).astype(np.float32)
+    cols = g.uniform(0.2, 1.0, (60, 3)).astype(np.float32)
+    poses = [(np.eye(3), np.array([0.0, 0.0, 3.0 if i in near else 12.0]),
+              *((0.5, 0.5) if i in near else (1.2, 1.2)), hw, hw) for i in range(80)]
+    gts = [np.zeros((hw, hw, 3), np.float32)] * 80
+    zero = dict(position_lr_init=0.0, position_lr_final=0.0, feature_lr=0.0, opacity_lr=0.0,
+                scaling_lr=0.0, rotation_lr=0.0)
+    cfg = dict(iterations=stop, capacity=64, sh_degree=0, dup_capacity_mult=1, k_max=64,
+               log_every=1, render_mode="tiled")
+    jlogs, tlogs = [], []
+    jvan.train_vanilla_3dgs([jmake_camera(*p) for p in poses], gts, pts, cols, 2.0,
+                            jvan.TrainConfig(**cfg, optim=jopt.OptimConfig(**zero)),
+                            seed=seed, log_fn=jlogs.append, start_iteration=start)
+    vanilla.train_vanilla_3dgs([make_camera(*p, device="cpu") for p in poses], gts, pts, cols,
+                               2.0, vanilla.TrainConfig(**cfg, optim=opt.OptimConfig(**zero)),
+                               seed=seed, log_fn=tlogs.append, start_iteration=start,
+                               device="cpu")
+
+    got, want = _cap_grow_records(tlogs), _cap_grow_records(jlogs)
+    assert got == want
+    assert [(it, old["dup_capacity"], new["dup_capacity"]) for it, old, new, _ in got] == [
+        (6, 64, 512), (7, 512, 768), (70, 768, 1280)]
+
+    def overflowing(logs):
+        return [(e["iter"], e["bin_overflow"], e["tile_overflow"])
+                for e in logs if "iter" in e and e["bin_overflow"]]
+
+    assert overflowing(tlogs) == overflowing(jlogs)
+    assert [it for it, _, _ in overflowing(tlogs)] == [6, 7, 64, 70]
+
+
 def test_train_vanilla_3dgs_on_cpu_fits_and_densifies():
     """A short CPU run through the whole loop: densify and reset each run,
     the loss falls before the reset, every output is finite."""
