@@ -25,7 +25,15 @@ together), then:
    orbit_far and orbit_near views); on the large frame and the benchmark
    views it also times them beside the torch route at the same caps, the
    plain version, ``torch.sort`` of the kept keys and the bytes bound, with
-   the device ops of one call;
+   the device ops of one call; then (``[2c]``) holds the preprocess kernels
+   (``csrc/preprocess.cu`` through ``preprocess_fields`` on CUDA tensors,
+   the torch route made to raise, no sync) to their plain versions: the
+   forward to ``preprocess_fields_plain`` and the backward, through
+   ``PreprocessFields`` at random cotangents, to its autograd VJP
+   (``preprocess_fields_bwd_plain``), each twice bit-identical with one
+   launch a call, on small scenes of every option and on the benchmark
+   views, with raw and with built scales and unit quaternions, timed
+   beside the plain versions and the bytes bounds;
 3. holds each kernel against its plain PyTorch version on the card:
    K1 (compositing forward) and K2 (compositing backward) on a small
    synthetic case (unaligned ranges, empty tiles, a range spanning several
@@ -211,8 +219,10 @@ together), then:
    when every check passed.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after: (K1, K2, K3, binning, preprocess), the last one launch of
-``bin_fused_cuda`` a fused render, checked against the path's renders. It exits non-zero, printing no result, without a CUDA card.
+just after: (K1, K2, K3, binning, preprocess, preprocess backward), the
+binning one launch of ``bin_fused_cuda`` a fused render, the preprocess
+one launch a ``preprocess_fields`` render and one a backward through it,
+checked against the path's renders. It exits non-zero, printing no result, without a CUDA card.
 """
 
 from __future__ import annotations
@@ -240,7 +250,7 @@ from sugar_tpu_torch import native
 from sugar_tpu_torch import pipeline as pipeline_mod
 from sugar_tpu_torch.core.cameras import make_camera
 from sugar_tpu_torch.core.quaternions import normalize as quat_normalize
-from sugar_tpu_torch.core.sh import C0, sh0_to_rgb, sh_to_rgb
+from sugar_tpu_torch.core.sh import C0, eval_sh, sh0_to_rgb, sh_to_rgb
 from sugar_tpu_torch.fields import density as df
 from sugar_tpu_torch.fields.knn import _sq_dists as knn_sq_dists
 from sugar_tpu_torch.fields.knn import knn
@@ -364,11 +374,13 @@ from sugar_tpu_torch.utils.profiling import card_line, cuda_ms
 # The counted wrappers: K1, K2, K3, the binning kernels (one launch of
 # ``bin_fused_cuda``, six kernels, a ``bin_fused`` call on the card: one a
 # fused render, none on the two-pass, tiled and tile-sharded paths) and the
-# preprocess kernel (``preprocess_fields_cuda``: one a ``render_model`` or
-# ``render_params`` call on the card that needs no gradient, whatever the
-# mode; none in a render under grad or through ``rasterize_gaussians``).
+# preprocess kernels (``preprocess_fields_cuda``: one a ``render_model``,
+# ``render_params`` or ``render_bound`` call on the card, whatever the mode,
+# none through ``rasterize_gaussians``; ``preprocess_fields_bwd_cuda``: one
+# a backward through such a render that needs its gradient).
 KERNELS = (tile_composite_cuda, tile_composite_bwd_cuda, segment_sum_cuda,
-           fused_mod.bin_fused_cuda, preprocess_mod.preprocess_fields_cuda)
+           fused_mod.bin_fused_cuda, preprocess_mod.preprocess_fields_cuda,
+           preprocess_mod.preprocess_fields_bwd_cuda)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "sugar_tpu_torch", "_build", "smoke")
@@ -899,8 +911,9 @@ def reset_launches() -> None:
         k.launches = 0
 
 
-def launches() -> tuple[int, int, int, int, int]:
-    """(K1, K2, K3, binning, preprocess) launches since the last reset."""
+def launches() -> tuple[int, int, int, int, int, int]:
+    """(K1, K2, K3, binning, preprocess, preprocess backward) launches
+    since the last reset."""
     return tuple(k.launches for k in KERNELS)
 
 
@@ -1068,18 +1081,19 @@ def timed_run(check, tag: str, label: str, fn, keep: int = 1, guard=contextlib.n
 
 def timed_entry(check, tag: str, name: str, fn, want, guard=contextlib.nullcontext):
     """timed_run of an entry point: ``want`` is the expected (K1, K2, K3,
-    binning, preprocess) launches; None for fused renders of a model that
-    need no gradient (K1 launched, no K2 or K3, one binning and one
-    preprocess a K1); or a (predicate of the launches, its description)
+    binning, preprocess, preprocess backward) launches; None for fused
+    renders that need no gradient (K1 launched, no K2 or K3, one binning
+    and one preprocess a K1, no preprocess backward); or a (predicate of
+    the launches, its description)
     pair. Returns (fn's result, wall s, launches, max abs error per
     kernel)."""
     r, st, _ = timed_run(check, tag, name, fn, guard=guard)
     got = st["launches"]
     if want is None:
-        want = (lambda g: g[0] > 0 and g[1:3] == (0, 0) and g[3] == g[4] == g[0],
-                "(> 0, 0, 0, = K1, = K1)")
+        want = (lambda g: g[0] > 0 and g[1:3] == (0, 0) and g[3] == g[4] == g[0] and g[5] == 0,
+                "(> 0, 0, 0, = K1, = K1, 0)")
     ok, text = (want[0](got), want[1]) if callable(want[0]) else (got == want, str(want))
-    check(ok, f"{name}: launches (K1, K2, K3, binning, preprocess) {text} (got {got})")
+    check(ok, f"{name}: launches (K1, K2, K3, binning, preprocess, preprocess bwd) {text} (got {got})")
     return r, st["wall_s"], got, st["errs"]
 
 
@@ -1184,8 +1198,8 @@ def phase_builds() -> None:
           f"{time.perf_counter() - t0:.2f} s wall")
     for name, (secs, log) in built.items():
         print(f"    {name}: {secs:.2f} s")
-        wanted = {"segsum": ("3", "9", "14", "16"),
-                  "binning": ("false", "true")}.get(name, ("1", "3", "4"))
+        wanted = {"segsum": ("3", "9", "14", "16"), "binning": ("false", "true"),
+                  "preprocess": ("false", "true")}.get(name, ("1", "3", "4"))
         for fn, regs, smem, spill in ptxas_report(log, wanted):
             print(f"      ptxas: {fn}: {regs} registers, {smem} bytes smem, "
                   f"{spill} bytes spill stores")
@@ -1531,13 +1545,28 @@ def preprocess_small_inputs(dev) -> dict:
     return out
 
 
-def plain_rounding_values(args, plain):
+def built_variant(args, kw):
+    """(args, kw) of the same render with the scales and unit quaternions
+    given built (the refined model's route): the kernels' other
+    instantiation."""
+    xyz, logit, log_scales, quats, dc, rest, st = args
+    return ((xyz, logit, None, None, dc, rest, st),
+            dict(kw, scales=torch.exp(log_scales), unit_quaternions=quat_normalize(quats)))
+
+
+def shape_fields(args, kw):
+    """(scales, unit quaternions) of a render, as the plain version takes
+    them."""
+    if kw.get("scales") is not None:
+        return kw["scales"], kw["unit_quaternions"]
+    return torch.exp(args[2]), quat_normalize(args[3])
+
+
+def plain_rounding_values(args, kw, plain):
     """(v_radius (N,), v_rect (N, 4)): the plain route's values before its
     ceil and its truncations, with ``preprocess``'s torch ops."""
-    xyz, _, log_scales, quaternions, _, _, st = args
-    cov = preprocess_mod._cov3d_channels(torch.exp(log_scales),
-                                         preprocess_mod.quat_normalize(quaternions),
-                                         st.scale_modifier)
+    xyz, st = args[0], args[6]
+    cov = preprocess_mod._cov3d_channels(*shape_fields(args, kw), st.scale_modifier)
     cxx, cxy, cyy = preprocess_mod.compute_cov2d(
         xyz, cov, st.viewmatrix, st.focal_x, st.focal_y, st.tanfovx, st.tanfovy).unbind(-1)
     det = cxx * cyy - cxy * cxy
@@ -1600,20 +1629,165 @@ def preprocess_bytes(args, kw, prep) -> int:
     return read + wrote
 
 
-def phase_preprocess(check, dev, inputs: dict) -> dict:
-    """[2c]: ``preprocess_fields`` on the card (the torch route refused,
-    under ``set_sync_debug_mode("error")``) against
-    ``preprocess_fields_plain`` on small scenes of every option and on the
-    benchmark's first views, twice bit-identical, one launch a call; its
-    time beside the plain version's and the bytes bound. Returns
-    dict(rows, max_abs_err (the largest float gap))."""
-    t0 = time.perf_counter()
-    rows, errs = [], []
+# The preprocess backward kernel against the autograd VJP of the plain
+# version, through ``PreprocessFields`` (the torch route refused, under
+# ``set_sync_debug_mode("error")``), at random cotangents, on the same
+# renders in both instantiations. Each gradient within PRE_BWD_TOL x
+# max|g| of its field (float32 sums in another order). The tie rule: a
+# Gaussian whose plain forward lies within PRE_NEAR of a clamp's edge (a
+# colour before its clamp at 0, |t / z| at the 1.3 tan limit, view z at
+# the near cull) may fall on the other side in the kernel, which then
+# passes another share of its gradient (all, half or none); such Gaussians
+# are left out of the comparison and counted, and must be fewer than one in
+# ten thousand.
+PRE_BWD_TOL = 2e-5
+
+
+def preprocess_cotangents(n: int, ch: int, dev, seed: int = 43) -> tuple:
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev)
+                 for shape in ((n, 2), (n, 3), (n,), (n, ch)))
+
+
+def preprocess_tie_rows(args, kw) -> torch.Tensor:
+    """(N,) bool: the Gaussians near a clamp's edge, by the plain forward's
+    values (``preprocess``'s torch ops)."""
+    xyz, st = args[0], args[6]
+    W = st.viewmatrix[:3, :3]
+    t = xyz @ W.T + st.viewmatrix[:3, 3]
+    tz = torch.where(t[:, 2] > rc.Z_CULL, t[:, 2], 1.0)
+    lims = torch.tensor([rc.FOV_CLAMP * st.tanfovx, rc.FOV_CLAMP * st.tanfovy], device=xyz.device)
+    u = t[:, :2] / tz[:, None]
+    near = ((u.abs() - lims).abs() <= PRE_NEAR * lims).any(1)
+    near |= (t[:, 2] - rc.Z_CULL).abs() <= PRE_NEAR
+    depth = xyz @ st.viewmatrix[2, :3] + st.viewmatrix[2, 3]
+    near |= (depth - rc.Z_CULL).abs() <= PRE_NEAR
+    if kw.get("colors") is None:
+        k = (st.sh_degree + 1) ** 2
+        shs = torch.cat([args[4][:, :, None], args[5]], -1)[:, :, :k]
+        dirs = xyz - st.campos
+        dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp(min=1e-12)
+        near |= ((eval_sh(st.sh_degree, shs, dirs) + 0.5).abs() <= PRE_NEAR).any(1)
+    return near
+
+
+def preprocess_bwd_bytes(args, kw) -> int:
+    """Bytes the backward kernel needs to move once: the fields it reads
+    (at the active SH degree), the cotangents, each gradient written
+    (sh_rest's whole rows)."""
+    xyz, st, rest = args[0], args[6], args[5]
+    n = xyz.shape[0]
+    sh = kw.get("colors") is None
+    seg = (st.sh_degree + 1) ** 2 - 1
+    read = n * (12 + 4 + 12 + 16) + (n * (12 + 12 * seg) if sh else 0)
+    read += n * (8 + 12 + 4 + (12 if sh else 0))
+    wrote = n * (12 + 4 + 12 + 16) + (n * 12 + rest.numel() * 4 if sh else 0)
+    wrote += 8 * n if kw.get("ndc_offset") is not None else 0
+    return read + wrote
+
+
+def check_preprocess_bwd(check, dev, label: str, args, kw) -> dict:
+    """The backward kernel on one render: through ``PreprocessFields``
+    against ``preprocess_fields_bwd_plain``, a second launch bit-identical,
+    one launch each of the forward and the backward; its time beside the
+    plain VJP's and the bytes bound."""
+    xyz, st = args[0], args[6]
+    n = xyz.shape[0]
+    colors = kw.get("colors")
+    cot = preprocess_cotangents(n, 3 if colors is None else colors.shape[1], dev)
+    # The fields in the backward's gradient order (GRAD_FIELDS), as leaves.
+    given = dict(zip(preprocess_mod.GRAD_FIELDS[:6], args[:6]),
+                 **{k: v for k, v in kw.items() if k != "alive_mask"})
+    if colors is not None:
+        given["sh_dc"] = given["sh_rest"] = None  # unread under a colors override
+    leaves = [None if given.get(f) is None else given[f].detach().requires_grad_(True)
+              for f in preprocess_mod.GRAD_FIELDS]
+    lf = dict(zip(preprocess_mod.GRAD_FIELDS, leaves))
 
     def refuse(*a, **k):
         raise AssertionError("preprocess_fields took the torch route on CUDA tensors")
 
-    for label, (args, kw) in (preprocess_small_inputs(dev) | inputs).items():
+    f0 = preprocess_mod.preprocess_fields_cuda.launches
+    b0 = preprocess_mod.preprocess_fields_bwd_cuda.launches
+    with swapped(preprocess_mod, "preprocess_fields_plain", refuse), \
+            swapped(preprocess_mod, "preprocess_fields_bwd_plain", refuse):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prep = preprocess_mod.preprocess_fields(
+                *leaves[:6], st, kw.get("alive_mask"), lf["colors"], lf["ndc_offset"],
+                lf["scales"], lf["unit_quaternions"])
+            outs = (prep.mean2d, prep.conic, prep.opacity, prep.color)
+            got = iter(torch.autograd.grad(outs, [x for x in leaves if x is not None], cot,
+                                           allow_unused=True))
+            kern = [None if x is None else next(got) for x in leaves]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    fl = preprocess_mod.preprocess_fields_cuda.launches - f0
+    bl = preprocess_mod.preprocess_fields_bwd_cuda.launches - b0
+    with torch.no_grad():
+        again = preprocess_mod.preprocess_fields_bwd_cuda(*cot, *args, **kw)
+        plain = preprocess_mod.preprocess_fields_bwd_plain(*cot, *args, **kw)
+        ties = preprocess_tie_rows(args, kw)
+    del prep, outs, leaves, lf, given
+    keep = ~ties
+    errs, bad, rep = {}, [], []
+    for name, a, b, c in zip(preprocess_mod.GRAD_FIELDS, kern, plain, again):
+        if (a is None) != (b is None) or (a is None) != (c is None):
+            bad.append(f"{name}: None differs")
+            continue
+        if a is None:
+            continue
+        if not torch.equal(a, c):
+            rep.append(name)
+        a, b = a[keep], b[keep]
+        if not b.numel():
+            continue
+        both_nan = torch.isnan(a) & torch.isnan(b)
+        gap = torch.where(both_nan, 0.0, (a - b).abs())
+        scale = float(torch.where(torch.isfinite(b), b.abs(), 0.0).max())
+        err = float(gap.max()) / max(scale, 1e-30)
+        errs[name] = err
+        if not err <= PRE_BWD_TOL:
+            bad.append(f"{name}: {err:.3e} of max|g| {scale:.3e}")
+    ms = cuda_ms(lambda: preprocess_mod.preprocess_fields_bwd_cuda(*cot, *args, **kw), PRE_REPS)
+    plain_ms = cuda_ms(lambda: preprocess_mod.preprocess_fields_bwd_plain(*cot, *args, **kw), 3)
+    bound_ms = preprocess_bwd_bytes(args, kw) / PEAK_BYTES_PER_S * 1e3
+    row = dict(label=label, n=n, sh_degree=st.sh_degree, launches=[fl, bl],
+               ties=int(ties.sum()), grad_err={k: float(f"{v:.3e}") for k, v in errs.items()},
+               differ_again=rep, ms=round(ms, 4), bound_ms=round(bound_ms, 4),
+               share_of_bound=round(bound_ms / ms, 4), plain_ms=round(plain_ms, 4))
+    print(f"[2c] preprocess backward, {label}: {json.dumps(row)}")
+    check(not bad, f"[2c] preprocess backward kernel within {PRE_BWD_TOL} x max|g| of the plain "
+                   f"VJP, {label} ({'; '.join(bad)})")
+    check(not rep, f"[2c] preprocess backward kernel gives bit-identical gradients twice, {label}")
+    check(fl == 1 and bl == 1, f"[2c] a render under grad on the card launched the forward and "
+                               f"the backward kernel once each, no sync, {label}")
+    check(row["ties"] * 10000 <= max(n, 10000),
+          f"[2c] fewer than one in ten thousand Gaussians near a clamp's edge, {label}")
+    del kern, again, plain
+    torch.cuda.empty_cache()
+    return dict(row, max_err=max(errs.values(), default=0.0))
+
+
+def phase_preprocess(check, dev, inputs: dict) -> dict:
+    """[2c]: ``preprocess_fields`` on the card (the torch route refused,
+    under ``set_sync_debug_mode("error")``) against
+    ``preprocess_fields_plain`` on small scenes of every option and on the
+    benchmark's first views, each also with built scales and unit
+    quaternions, twice bit-identical, one launch a call; its time beside
+    the plain version's and the bytes bound; then the backward kernel on
+    the same renders (``check_preprocess_bwd``). Returns dict(rows,
+    max_abs_err (the largest float gap), bwd_rows, bwd_max_err)."""
+    t0 = time.perf_counter()
+    rows, errs, bwd_rows = [], [], []
+
+    def refuse(*a, **k):
+        raise AssertionError("preprocess_fields took the torch route on CUDA tensors")
+
+    cases = preprocess_small_inputs(dev) | inputs
+    cases |= {f"built: {label}": built_variant(*c) for label, c in cases.items()}
+    for label, (args, kw) in cases.items():
         l0 = preprocess_mod.preprocess_fields_cuda.launches
         with torch.no_grad():
             with swapped(preprocess_mod, "preprocess_fields_plain", refuse):
@@ -1626,7 +1800,7 @@ def phase_preprocess(check, dev, inputs: dict) -> dict:
             torch.cuda.synchronize()
             launches_ = preprocess_mod.preprocess_fields_cuda.launches - l0
             plain = preprocess_mod.preprocess_fields_plain(*args, **kw)
-            v_r, v_rect = plain_rounding_values(args, plain)
+            v_r, v_rect = plain_rounding_values(args, kw, plain)
             d = compare_preprocess(kern, plain, v_r, v_rect)
             fields = [f.name for f in dataclasses.fields(kern)]
             rep = [f for f in fields if not torch.equal(getattr(kern, f), getattr(again, f))]
@@ -1657,8 +1831,10 @@ def phase_preprocess(check, dev, inputs: dict) -> dict:
         errs.append(max(d[f]["max_abs"] for f in PRE_FLOATS))
         del kern, again, plain, v_r, v_rect
         torch.cuda.empty_cache()
+        bwd_rows.append(check_preprocess_bwd(check, dev, label, args, kw))
     print(f"[2c] preprocess phase: {time.perf_counter() - t0:.1f} s")
-    return dict(rows=rows, max_abs_err=max(errs))
+    return dict(rows=rows, max_abs_err=max(errs), bwd_rows=bwd_rows,
+                bwd_max_err=max(r["max_err"] for r in bwd_rows))
 
 
 def check_k2(check, fwd: CompositeOut, args, g_img, gt_total, label: str, tag: str = "[3]",
@@ -1869,11 +2045,11 @@ def phase_card_vs_cpu(check, dev) -> None:
         scale = float(g_cpu[k].abs().max())
         rows[k] = (float((g_card[k] - g_cpu[k]).abs().max()), scale)
     print(f"[5] card vs CPU, 200-Gaussian SH-3 scene at 48x64: loss {loss_card:.7f} / "
-          f"{loss_cpu:.7f}; launches (K1, K2, K3, binning, preprocess) {counts}")
+          f"{loss_cpu:.7f}; launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts}")
     for k, (err, scale) in rows.items():
         print(f"    d {k}: max abs diff {err:.3e}, max|g| {scale:.3e}")
-    check(counts == (1, 1, 1, 1, 0), "card run launched K1, K2, K3 and the binning once each, "
-          "no preprocess kernel (the render needs its gradient)")
+    check(counts == (1,) * 6, "card run launched K1, K2, K3, the binning, the preprocess kernel "
+          "and its backward once each")
     check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu), "card loss equals the CPU loss")
     check(all(err <= CARD_CPU_RTOL * scale + 1e-9 and scale > 0 for err, scale in rows.values()),
           f"card gradients within {CARD_CPU_RTOL} x max|g| of the CPU's")
@@ -1899,8 +2075,9 @@ def phase_fwd_bwd(check, dev, settings) -> dict:
     counts = launches()
     ovf = adaptive.read_overflow(out)
     print(f"[6] fwd+bwd, 1M trained scene, 512x512: overflow {json.dumps(ovf)}; "
-          f"launches (K1, K2, K3, binning, preprocess) {counts}")
-    check(counts == (1, 1, 1, 1, 0), "fwd+bwd launched K1, K2, K3 and the binning once each")
+          f"launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts}")
+    check(counts == (1, 1, 1, 1, 0, 0), "fwd+bwd launched K1, K2, K3 and the binning once each "
+          "(rasterize_gaussians: the torch preprocess)")
     check(all(ovf[k] == 0 for k in ("bin_overflow", "big_overflow", "cap_overflow",
                                     "tile_overflow")), "fwd+bwd overflow counters all 0")
     check(all(bool(torch.isfinite(x).all()) for x in g) and float(g[0].abs().max()) > 0,
@@ -1944,7 +2121,7 @@ def phase_train(check, dev, cams) -> dict:
     grows = [r for r in logs if r.get("event") == "cap_grow"]
     losses = [r["loss"] for r in steps]
     print(f"[7] training: {TRAIN_ITERS} iterations, {TRAIN_N} Gaussians in {TRAIN_CAPACITY} "
-          f"slots, {wall:.2f} s wall; launches (K1, K2, K3, binning, preprocess) {counts}")
+          f"slots, {wall:.2f} s wall; launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts}")
     print(f"    losses: {', '.join(f'{x:.5f}' for x in losses)}")
     for r in dens_events + resets + grows:
         print(f"    {json.dumps(r)}")
@@ -1953,8 +2130,9 @@ def phase_train(check, dev, cams) -> dict:
                                               "tile_overflow"))]
     print(f"    iterations with an overflow counter > 0: {ovf_steps}; n_alive at the end "
           f"{int(state.model.alive.sum())}")
-    check(counts == (TRAIN_ITERS,) * 4 + (0,),
-          "training: one K1 and one binning launch per render, one K2 and K3 launch per backward")
+    check(counts == (TRAIN_ITERS,) * 6,
+          "training: one K1, one binning and one preprocess launch per render, one K2, K3 and "
+          "preprocess backward launch per backward")
     check(len(losses) == TRAIN_ITERS and all(math.isfinite(x) for x in losses),
           "training: every loss finite")
     first, late = statistics.mean(losses[:5]), statistics.mean(losses[20:25])
@@ -1994,7 +2172,7 @@ def phase_train(check, dev, cams) -> dict:
     ovf_any = [adaptive.read_overflow(a) for a in auxes]
     zero = all(not adaptive.overflowed(o) and o.get("big_overflow", 0) == 0 for o in ovf_any)
     check(zero, "timed train steps: overflow counters all 0")
-    check(timed_counts == (TIMED_STEPS,) * 4 + (0,),
+    check(timed_counts == (TIMED_STEPS,) * 6,
           "timed train steps: one launch of each kernel per step")
     wall_ms, busy_ms, ranked = profile_device(
         lambda: step(params, alive_t, adam, stats, cams[0], targets[0], TRAIN_ITERS), top=None)
@@ -2279,7 +2457,7 @@ def phase_coarse(check, dev, cams, targets) -> dict:
     steps = [r for r in logs if "loss" in r]
     knn_builds = [r["iter"] for r in logs if r.get("event") == "knn"]
     grows = [r for r in logs if r.get("event") == "cap_grow"]
-    deltas, prev = {}, (0,) * 5
+    deltas, prev = {}, (0,) * 6
     for it, c in per_iter:
         deltas[it] = tuple(a - b for a, b in zip(c, prev))
         prev = c
@@ -2290,7 +2468,7 @@ def phase_coarse(check, dev, cams, targets) -> dict:
           f"{[(r['new']['k_max'], r['new']['tile_cap'], r['new']['dup_capacity']) for r in grows]}")
     for r in steps:
         print(f"    iter {r['iter']}: loss {r['loss']:.6f}, psnr {r['psnr']:.3f}, n_alive "
-              f"{r['n_alive']}, launches (K1, K2, K3, binning, preprocess) {deltas[r['iter']]}, overflow "
+              f"{r['n_alive']}, launches (K1, K2, K3, binning, preprocess, preprocess bwd) {deltas[r['iter']]}, overflow "
               f"{[r.get(k, 0) for k in ('bin_overflow', 'big_overflow', 'cap_overflow', 'tile_overflow')]}")
     n_alive = {r["iter"]: r["n_alive"] for r in steps}
     check(len(steps) == COARSE_END - COARSE_START and all(math.isfinite(r["loss"]) for r in steps),
@@ -2299,9 +2477,10 @@ def phase_coarse(check, dev, cams, targets) -> dict:
           "coarse: n_alive drops at the prune (iteration 9000)")
     check(knn_builds == [COARSE_START + 1, COARSE_MILESTONE, COARSE_MILESTONE],
           "coarse: three KNN builds (first step, the 9000 refresh, after the prune)")
-    want = {it: (1,) * 4 + (0,) if it <= COARSE_MILESTONE else (2,) * 4 + (0,) for it in deltas}
+    want = {it: (1,) * 6 if it <= COARSE_MILESTONE else (2,) * 4 + (1, 1) for it in deltas}
     check(deltas == want, "coarse: one launch of K1, K2, K3 and the binning per iteration through "
-          "9000, two after")
+          "9000, two after (the depth render takes the torch preprocess); one of the preprocess "
+          "kernel and its backward per iteration")
     # Each new view may overflow once (a lagged growth follows); after the
     # first pass over the 8 views and the lag, the caps cover every view.
     ovf_iters = [r["iter"] for r in steps if any(r.get(k, 0) for k in (
@@ -2358,11 +2537,11 @@ def phase_coarse(check, dev, cams, targets) -> dict:
     reset_launches()
     dense = train_coarse(out, cams, targets, extent, dcfg, seed=0, log_fn=dlog)
     torch.cuda.synchronize()
-    dd = [tuple(a - b for a, b in zip(c, p)) for c, p in zip(dper, [(0,) * 5] + dper[:-1])]
+    dd = [tuple(a - b for a, b in zip(c, p)) for c, p in zip(dper, [(0,) * 6] + dper[:-1])]
     dsteps = [r for r in dlogs if "loss" in r]
     print(f"[9] train_coarse 'density', {DENSITY_STEPS} SDF-phase steps: losses "
           f"{[round(r['loss'], 6) for r in dsteps]}; launches per step {dd}")
-    check(dd == [(1, 1, 1, 1, 0)] * DENSITY_STEPS and all(math.isfinite(r["loss"]) for r in dsteps)
+    check(dd == [(1,) * 6] * DENSITY_STEPS and all(math.isfinite(r["loss"]) for r in dsteps)
           and all(bool(torch.isfinite(getattr(dense.params, f)).all()) for f in PARAM_FIELDS),
           "coarse 'density': one launch of each kernel per step (no depth render), finite")
     return dict(model=out, extent=extent, cfg=cfg, wall_s=wall, resume_s=resume_wall)
@@ -2407,7 +2586,9 @@ def time_coarse_step(check, dev, cams, targets, state) -> dict:
     step_ms = [a.elapsed_time(b) for a, b in ms]
     peak = torch.cuda.max_memory_allocated() - base
     counts = launches()
-    check(counts == (2 * TIMED_STEPS,) * 4 + (0,), "timed 'sdf' steps: two launches of each kernel per step")
+    check(counts == (2 * TIMED_STEPS,) * 4 + (TIMED_STEPS,) * 2,
+          "timed 'sdf' steps: two launches of K1, K2, K3 and the binning per step, one of the "
+          "preprocess kernel and its backward")
     check(all(not adaptive.overflowed(adaptive.read_overflow(a)) for a in auxes)
           and all(math.isfinite(float(a["loss"])) for a in auxes),
           "timed 'sdf' steps: overflow 0, losses finite")
@@ -2462,7 +2643,7 @@ def time_coarse_step(check, dev, cams, targets, state) -> dict:
     print(f"[9] coarse 'sdf' step at full width ({TRAIN_CAPACITY} slots, "
           f"{int(alive.sum())} alive, {n} samples x 16 neighbors): median "
           f"{statistics.median(step_ms):.3f} ms of {TIMED_STEPS} "
-          f"({', '.join(f'{v:.3f}' for v in step_ms)}); launches (K1, K2, K3, binning, preprocess) {counts} over "
+          f"({', '.join(f'{v:.3f}' for v in step_ms)}); launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts} over "
           f"{TIMED_STEPS} steps; peak memory above the state {peak / 1e9:.3f} GB; caps {caps}")
     print(f"    under torch.profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle "
           f"share {1.0 - busy_ms / wall_ms:.3f}; {len(ranked)} distinct kernels, "
@@ -2606,8 +2787,8 @@ def phase_levelset_card_vs_cpu(check, dev) -> None:
                points_max_abs=float(torch.where(both, dp, 0.0).max()),
                normals_max_abs=float(torch.where(both, dn, 0.0).max()))
     print(f"[10] level set card vs CPU, 200-Gaussian sphere at {LEVELSET_HW}x{LEVELSET_HW}: "
-          f"{json.dumps(row)}; launches (K1, K2, K3, binning, preprocess) {counts}")
-    check(counts == (1, 0, 0, 1, 0), "level set on the card: one K1 and one binning launch, no "
+          f"{json.dumps(row)}; launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts}")
+    check(counts == (1, 0, 0, 1, 0, 0), "level set on the card: one K1 and one binning launch, no "
           "backward")
     check(mask_diff <= LEVELSET_SHARE * pixels and off <= LEVELSET_SHARE * pixels
           and row["valid_card"] > 500,
@@ -2672,7 +2853,7 @@ def phase_extract(check, dev, coarse_model, cams) -> dict:
           f"{cfg.poisson_resolution}, decimation_target {cfg.decimation_target}, dup_capacity "
           f"{cfg.dup_capacity}, k_max {cfg.k_max}), {n_alive} Gaussians after the prune in "
           f"{coarse_model.capacity} slots, {len(cams)} cameras at {H}x{W}: {wall:.2f} s wall; "
-          f"launches (K1, K2, K3, binning, preprocess) {counts}")
+          f"launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts}")
     cam_ms, overflowing = [], []
     for i, c in enumerate(ls_calls):
         whole = c["events"][0].elapsed_time(c["events"][1])
@@ -2724,8 +2905,8 @@ def phase_extract(check, dev, coarse_model, cams) -> dict:
                  depth_max_abs=float(both_depth.max()))
     print(f"    camera {worst} at k_max {k_full} (covers its deepest tile): {json.dumps(grown)}")
     del fixed, full
-    check(len(ls_calls) == len(cams) and all(c["launches"] == (1, 0, 0, 1, 0) for c in ls_calls)
-          and counts == (len(cams), 0, 0, len(cams), 0), "mesh extraction: one K1 and one binning "
+    check(len(ls_calls) == len(cams) and all(c["launches"] == (1, 0, 0, 1, 0, 0) for c in ls_calls)
+          and counts == (len(cams), 0, 0, len(cams), 0, 0), "mesh extraction: one K1 and one binning "
           "launch per level-set camera, no K2 or K3")
     check(all(c["valid"] >= 1000 for c in ls_calls), "level set: every camera finds >= 1000 points")
     radius = np.linalg.norm(verts - np.array([0.0, 0.0, 3.2], np.float32), axis=1)
@@ -2819,9 +3000,10 @@ def phase_refine_card_vs_cpu(check, dev) -> None:
     err, scale = float((g_card - g_cpu).abs().max()), float(g_cpu.abs().max())
     print(f"[11] refine step card vs CPU, {len(faces)}-face sphere, 3 Gaussians per triangle, SH 3, "
           f"{REFINE_HW}x{REFINE_HW}: loss {loss_card:.7f} / {loss_cpu:.7f}; vertex gradient max abs "
-          f"diff {err:.3e}, max|g| {scale:.3e}; launches (K1, K2, K3, binning, preprocess) {counts}; overflow "
+          f"diff {err:.3e}, max|g| {scale:.3e}; launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts}; overflow "
           f"{json.dumps(adaptive.read_overflow(aux))}")
-    check(counts == (1, 1, 1, 1, 0), "refine step on the card: K1, K2, K3 and the binning once each")
+    check(counts == (1,) * 6, "refine step on the card: K1, K2, K3, the binning, the preprocess "
+          "kernel and its backward once each")
     check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu) and scale > 0
           and err <= CARD_CPU_RTOL * scale,
           f"refine step: loss and vertex gradient on the card within {CARD_CPU_RTOL} x max|g| of "
@@ -2872,11 +3054,11 @@ def phase_refine(check, dev, mesh, cams, targets, extent) -> dict:
     n_g = int(params.opacity_logit.shape[0])
     steps = [r for r in logs if "loss" in r]
     grows = [r for r in logs if r.get("event") == "cap_grow"]
-    deltas = [tuple(a - b for a, b in zip(c, p)) for c, p in zip(per_iter, [(0,) * 5] + per_iter[:-1])]
+    deltas = [tuple(a - b for a, b in zip(c, p)) for c, p in zip(per_iter, [(0,) * 6] + per_iter[:-1])]
     print(f"[11] refined_training on the [10] mesh: {len(verts)} vertices, {len(faces)} faces, "
           f"{n_g} Gaussians (1 per triangle), SH degree {cfg.sh_degree}, iterations 1-"
           f"{REFINE_ITERS}: {wall:.2f} s wall; normal_consistency_pairs {pairs_s * 1e3:.1f} ms host "
-          f"({len(pairs_np)} pairs); launches (K1, K2, K3, binning, preprocess) {counts}; cap growths to (k_max, "
+          f"({len(pairs_np)} pairs); launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts}; cap growths to (k_max, "
           f"tile_cap, dup_capacity) "
           f"{[(r['new']['k_max'], r['new']['tile_cap'], r['new']['dup_capacity']) for r in grows]}")
     for r, dl in zip(steps, deltas):
@@ -2885,8 +3067,9 @@ def phase_refine(check, dev, mesh, cams, targets, extent) -> dict:
     check(len(steps) == REFINE_ITERS and all(math.isfinite(r["loss"]) for r in steps)
           and all(bool(torch.isfinite(getattr(params, f)).all()) for f in BOUND_FIELDS),
           "refine: every loss and every parameter finite")
-    check(deltas == [(1, 1, 1, 1, 0)] * REFINE_ITERS and counts == (REFINE_ITERS,) * 4 + (0,),
-          "refine: one launch of K1, K2, K3 and the binning per iteration")
+    check(deltas == [(1,) * 6] * REFINE_ITERS and counts == (REFINE_ITERS,) * 6,
+          "refine: one launch of K1, K2, K3, the binning, the preprocess kernel and its "
+          "backward per iteration")
 
     # The loss over the 8 views before and after, at caps that drop nothing.
     p0, _ = init_bound_params(verts, faces, vc, 1, extent=extent, sh_degree=cfg.sh_degree,
@@ -2960,7 +3143,7 @@ def phase_refine(check, dev, mesh, cams, targets, extent) -> dict:
     peak = torch.cuda.max_memory_allocated() - base
     timed_counts = launches()
     ovf = [adaptive.read_overflow(a) for a in auxes]
-    check(timed_counts == (TIMED_STEPS,) * 4 + (0,),
+    check(timed_counts == (TIMED_STEPS,) * 6,
           f"timed refine steps: one launch of each kernel per step {timed_counts}")
     check(all(not adaptive.overflowed(o) for o in ovf)
           and all(math.isfinite(float(a["loss"])) for a in auxes),
@@ -3143,7 +3326,7 @@ def phase_texture(check, dev, params, bm, cams) -> dict:
           f"{sh}, {len(cams)} cameras at {H}x{W}, TextureConfig defaults (square_size "
           f"{cfg.square_size}), render caps dup {BAKE_DUP_CAPACITY} k_max {BAKE_K_MAX}, "
           f"rasterize_mesh dup 2^20 k_max {BAKE_RASTER_K_MAX}: {wall:.2f} s wall (OBJ, MTL and PNG "
-          f"written); atlas {tex_size}x{tex_size} texels; launches (K1, K2, K3, binning, preprocess) {counts}")
+          f"written); atlas {tex_size}x{tex_size} texels; launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts}")
     for i, row in enumerate(rows):
         print(f"    camera {i}: render_bound {row['render_ms']:.2f} ms device, rasterize_mesh "
               f"{row['raster_ms']:.2f} ms device, accumulation {row['acc_ms']:.1f} ms host; "
@@ -3158,9 +3341,9 @@ def phase_texture(check, dev, params, bm, cams) -> dict:
         print(f"    NOTE: at the bake's fixed caps render_bound dropped splats on cameras {dropping} "
               f"and rasterize_mesh truncated tiles at k_max {BAKE_RASTER_K_MAX} on cameras "
               f"{truncated}: faults of the reference's bake (no capacity loop), kept for parity")
-    check(counts == (len(cams), 0, 0, len(cams), 0) and len(recs["K1"]) == len(cams)
-          and not recs["K2"] and not recs["K3"], "texture bake: one K1 and one binning launch per "
-          "camera, no K2 or K3")
+    check(counts == (len(cams), 0, 0, len(cams), len(cams), 0) and len(recs["K1"]) == len(cams)
+          and not recs["K2"] and not recs["K3"], "texture bake: one K1, one binning and one "
+          "preprocess launch per camera, no K2, K3 or preprocess backward")
     check(tex_size == expect_size and all(r["raster_overflow"] == 0 for r in rows),
           f"texture bake: atlas {expect_size}^2 at {n_faces} faces, no rasterize_mesh duplication "
           f"overflow")
@@ -3281,7 +3464,7 @@ def phase_pipeline(check, dev) -> dict:
     mesh = stage("extract_mesh", run_extract_mesh, coarse)
     refined = stage("refine", run_refine, mesh)
     textured = stage("texture", run_texture, refined)
-    total = tuple(sum(c[k] for c in counts.values()) for k in range(5))
+    total = tuple(sum(c[k] for c in counts.values()) for k in range(6))
     art = dict(vanilla=gs, coarse=coarse, mesh=mesh, refined=refined, textured=textured)
 
     scores = {}
@@ -3301,7 +3484,7 @@ def phase_pipeline(check, dev) -> dict:
           f"96x96, {len(train_idx)} train / {len(test_idx)} held out; built in {scene_s:.2f} s), "
           f"iterations {PIPE_ITERS}: stage walls "
           + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
-          + f"; launches (K1, K2, K3, binning, preprocess) " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+          + f"; launches (K1, K2, K3, binning, preprocess, preprocess bwd) " + ", ".join(f"{k} {v}" for k, v in counts.items()))
     print("    held-out PSNR / SSIM: " + ", ".join(f"{k} {p:.3f} dB / {s:.4f}"
                                                   for k, (p, s) in scores.items())
           + f" (floors {PARITY_FLOORS}; JAX on a CPU, tests/test_parity.py:87-92: 17.00 / 19.10 / "
@@ -3326,7 +3509,7 @@ def phase_pipeline(check, dev) -> dict:
             a = fn(rcfg, scene, a, log_fn=log_fn)
 
     skipped, rcounts, _ = resumed_run(again)
-    print(f"    resumed run: stage_skip events {skipped}, launches (K1, K2, K3, binning, preprocess) {rcounts}")
+    print(f"    resumed run: stage_skip events {skipped}, launches (K1, K2, K3, binning, preprocess, preprocess bwd) {rcounts}")
 
     p = {k: v[0] for k, v in scores.items()}
     check(all(math.isfinite(v) for v in p.values()), "pipeline: every stage's PSNR finite")
@@ -3339,18 +3522,20 @@ def phase_pipeline(check, dev) -> dict:
     n_train = len(train_idx)
     v_it, c_it, r_it = PIPE_ITERS
     kc = counts["coarse"]
-    check(counts["vanilla"] == (v_it,) * 4 + (0,) and counts["refine"] == (r_it,) * 4 + (0,)
-          and counts["extract_mesh"] == (n_train, 0, 0, n_train, 0)
-          and counts["texture"] == (n_train, 0, 0, n_train, 0)
-          and kc[0] == kc[1] == kc[2] == kc[3] and kc[4] == 0 and c_it <= kc[0] <= 2 * c_it,
-          "pipeline launches: K1/K2/K3 and the binning once per vanilla and refine iteration, "
-          "once or twice per coarse iteration, K1 and the binning once per camera in extraction "
-          "and the bake")
+    check(counts["vanilla"] == (v_it,) * 6 and counts["refine"] == (r_it,) * 6
+          and counts["extract_mesh"] == (n_train, 0, 0, n_train, 0, 0)
+          and counts["texture"] == (n_train, 0, 0, n_train, n_train, 0)
+          and kc[0] == kc[1] == kc[2] == kc[3] and kc[4] == kc[5] == c_it
+          and c_it <= kc[0] <= 2 * c_it,
+          "pipeline launches: K1/K2/K3, the binning and the preprocess pair once per vanilla and "
+          "refine iteration; K1/K2/K3 and the binning once or twice per coarse iteration, the "
+          "preprocess pair once; K1 and the binning once per camera in extraction and the bake, "
+          "the preprocess kernel once per camera in the bake")
     check(int(r_model.alive.sum()) == 3 * len(mf) and int(sp.opacity_logit.shape[0]) == 3 * len(mf)
           and len(lf) == len(mf) and int(v_model.alive.sum()) > 0
           and int(c_model.alive.sum()) > 0 and mc is not None,
           "pipeline: every artifact loads back (3 Gaussians per mesh triangle)")
-    check(skipped == list(PIPE_STAGES) and rcounts == (0,) * 5,
+    check(skipped == list(PIPE_STAGES) and rcounts == (0,) * 6,
           "pipeline: a resumed run skips every stage and launches no kernel")
     return dict(walls=walls, counts=counts, launches=total, scores=scores, scene_s=scene_s,
                 errs=errs, scene=scene, artifacts=dict(vanilla=gs, coarse=coarse, refined=refined))
@@ -3510,7 +3695,7 @@ def phase_twopass(check, dev, model, cams, fused_caps, card) -> dict:
     serve = launches()
     ovfs = [adaptive.read_overflow(o) for o in outs]
     print(f"[14] two-pass serving: {len(cams)} views, {renders} renders (incl. cap growth), "
-          f"launches (K1, K2, K3, binning, preprocess) {serve}, {wall_s:.2f} s wall; caps after view 0 "
+          f"launches (K1, K2, K3, binning, preprocess, preprocess bwd) {serve}, {wall_s:.2f} s wall; caps after view 0 "
           f"{caps_kw(tp_caps[0])}, after view {len(cams) - 1} {caps_kw(caps)}")
     print(f"    max_tiles_touched per view {[o['max_tiles_touched'] for o in ovfs]}; dense "
           f"expansion {model.capacity} x tile_cap {caps.tile_cap} = "
@@ -3518,7 +3703,7 @@ def phase_twopass(check, dev, model, cams, fused_caps, card) -> dict:
           f"{[o['num_rendered'] for o in ovfs]}; deepest tile per view "
           f"{[o['max_tile_count'] for o in ovfs]}; peak memory {peak_gb:.3f} GB "
           f"({base_gb:.3f} GB held before)")
-    check(serve == (renders, 0, 0, 0, renders) and renders >= len(cams),
+    check(serve == (renders, 0, 0, 0, renders, 0) and renders >= len(cams),
           "two-pass serving: one K1 and one preprocess launch per render, no backward, no plain "
           "version, no fused path (so no binning kernel)")
     errs = {}
@@ -3544,8 +3729,8 @@ def phase_twopass(check, dev, model, cams, fused_caps, card) -> dict:
         g_tp, _ = param_grads(model, cams[0], "pallas_twopass", kw0)
         torch.cuda.synchronize()
     fb_counts = launches()
-    check(fb_counts == (1, 1, 1, 0, 0), f"two-pass fwd+bwd at view 0: one launch each of K1, K2, "
-          f"K3, none of the binning (got {fb_counts})")
+    check(fb_counts == (1, 1, 1, 0, 1, 1), f"two-pass fwd+bwd at view 0: one launch each of K1, "
+          f"K2, K3 and the preprocess pair, none of the binning (got {fb_counts})")
     for k, e in check_recorded(check, recs, "[14]", "two-pass fwd+bwd, view 0").items():
         errs[k] = max(errs.get(k, 0.0), e)
     recs.clear()
@@ -3619,7 +3804,7 @@ def phase_oracle_triangle(check, dev) -> dict:
     mode runs inside no_fallback(): reference and tiled launch no kernel,
     two-pass one K1 per render, held to its plain version on the last
     render's arguments."""
-    outs, errs, card_launches = {}, {}, (0,) * 5
+    outs, errs, card_launches = {}, {}, (0,) * 6
     for d in (dev, torch.device("cpu")):
         args, kw = oracle_scene(d)
         on_card = d.type == "cuda"
@@ -3644,13 +3829,13 @@ def phase_oracle_triangle(check, dev) -> dict:
             outs[(d.type, mode)] = {k: out[k].cpu() for k in ("image", "final_T", "n_contrib")}
             counts = launches()
             print(f"[14] oracle scene, {mode} on {d.type}: {ms:.1f} ms host (adaptive caps "
-                  f"{caps_kw(caps)}, {renders} renders, launches (K1, K2, K3, binning, preprocess) {counts}), "
+                  f"{caps_kw(caps)}, {renders} renders, launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts}), "
                   f"final_T "
                   f"min {float(out['final_T'].min()):.3e}, n_contrib max "
                   f"{int(out['n_contrib'].max())}")
             if not on_card:
                 continue
-            want = (renders, 0, 0, 0, 0) if mode == "pallas_twopass" else (0,) * 5
+            want = (renders, 0, 0, 0, 0, 0) if mode == "pallas_twopass" else (0,) * 6
             check(counts == want, f"oracle scene, {mode} on the card: launches {want} "
                   f"(got {counts})")
             card_launches = tuple(a + b for a, b in zip(card_launches, counts))
@@ -3701,7 +3886,7 @@ def phase_compositor(check, dev, params, bm, card) -> dict:
         wall_s = time.perf_counter() - t0
     finally:
         demo_hybrid.composite_render = orig
-    check(launches() == (0,) * 5, f"run_demo: the compositor's tiled mode launches no kernel "
+    check(launches() == (0,) * 6, f"run_demo: the compositor's tiled mode launches no kernel "
           f"(got {launches()})")
     n = int(params.opacity_logit.shape[0])
     print(f"[14] demo_hybrid.run_demo on [11]'s refined model ({n} Gaussians; k_max 1024, "
@@ -3773,7 +3958,7 @@ def phase_entry_points(check, dev, scene, artifacts) -> dict:
     out = os.path.join(root, "renders")
     entry("render", lambda: render_script.main(
         ["-s", scene_dir, "-c", artifacts["vanilla"], "-o", out], device=dev),
-        (len(scene.cameras), 0, 0, len(scene.cameras), len(scene.cameras)))
+        (len(scene.cameras), 0, 0, len(scene.cameras), len(scene.cameras), 0))
     loaded = load_scene(PipelineConfig(scene_path=scene_dir), device=dev)
     _, test_idx = loaded.split(True)
     model = load_ply(artifacts["vanilla"], device=dev)
@@ -3810,7 +3995,7 @@ def phase_entry_points(check, dev, scene, artifacts) -> dict:
     paths = entry("compose_animation", lambda: compose_animation.main(
         ["--ply", artifacts["vanilla"], "--ply", artifacts["coarse"], "--trajectory", traj,
          "--animation", anim, "--height", str(ENTRY_HW), "--width", str(ENTRY_HW),
-         "-o", os.path.join(root, "frames")], device=dev), (0,) * 5, refuse=True)
+         "-o", os.path.join(root, "frames")], device=dev), (0,) * 6, refuse=True)
     imgs = [read_png(p) for p in paths]
     print(f"[14] compose_animation, 2 PLYs x 4 frames at {ENTRY_HW}x{ENTRY_HW} (the compositor's "
           f"tiled mode): {walls['compose_animation']:.2f} s; frame means "
@@ -3820,17 +4005,17 @@ def phase_entry_points(check, dev, scene, artifacts) -> dict:
 
     ckpt = entry("train_vanilla_gs", lambda: train_vanilla_gs.main(
         ["-s", scene_dir, "-o", os.path.join(root, "vanilla"), "--iterations",
-         str(ENTRY_VANILLA_ITERS)], device=dev), (ENTRY_VANILLA_ITERS,) * 4 + (0,))
+         str(ENTRY_VANILLA_ITERS)], device=dev), (ENTRY_VANILLA_ITERS,) * 6)
     trained = load_ply(ckpt, device=dev)
     finite = all(bool(torch.isfinite(getattr(trained.params, f)).all()) for f in PARAM_FIELDS)
     print(f"[14] train_vanilla_gs, {ENTRY_VANILLA_ITERS} iterations on that scene (the loader's "
           f"100,000-point random init, capacity {trained.capacity}): "
-          f"{walls['train_vanilla_gs']:.2f} s, launches (K1, K2, K3, binning, preprocess) "
+          f"{walls['train_vanilla_gs']:.2f} s, launches (K1, K2, K3, binning, preprocess, preprocess bwd) "
           f"{counts['train_vanilla_gs']}; checkpoint {int(trained.alive.sum())} Gaussians")
     check(finite and int(trained.alive.sum()) > 0, "train_vanilla_gs: the checkpoint loads back, "
           "finite, with live Gaussians")
     return dict(walls=walls, errs=errs,
-                launches=tuple(sum(c[k] for c in counts.values()) for k in range(5)))
+                launches=tuple(sum(c[k] for c in counts.values()) for k in range(6)))
 
 
 # --- [15] the multi-device paths ----------------------------------------
@@ -3889,7 +4074,7 @@ def sharded_views(check, dev, axis, model, cams, kws: list[dict], tag: str, labe
             outs.append(full)
     res = dict(counts=launches(), bytes=comm.counters(), ms=ms,
                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9, errs={})
-    check(res["counts"] == (len(cams), 0, 0, 0, 0),
+    check(res["counts"] == (len(cams), 0, 0, 0, 0, 0),
           f"{label}: one K1 launch per view on this rank, no backward, no plain version, no "
           f"fused path and so no binning kernel (got {res['counts']})")
     if axis.index == 0:
@@ -3925,7 +4110,7 @@ def sharded_fwd_bwd(check, dev, axis, model, cam, kw: dict, tag: str) -> dict:
         grads = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize(dev)
     counts = launches()
-    check(counts == (1, 1, 1, 0, 0), f"tile-sharded fwd+bwd: one launch each of K1, K2, K3 on "
+    check(counts == (1, 1, 1, 0, 0, 0), f"tile-sharded fwd+bwd: one launch each of K1, K2, K3 on "
           f"this rank, none of the binning (got {counts})")
     errs = check_recorded(check, recs, tag, "tile-sharded fwd+bwd, view 0 (this rank's band)")
     recs.clear()
@@ -4041,8 +4226,8 @@ def parallel_training(check, dev, axis, data: dict, tag: str) -> dict:
         p, a, stats, aux = step(*state, cams, targets, PAR_STEP_IT)
         torch.cuda.synchronize()
     res["counts_2x2"] = launches()
-    check(res["counts_2x2"] == (1, 1, 1, 1, 0), f"(2, 2) step: one launch each of K1, K2, K3 and "
-          f"the binning on this rank (got {res['counts_2x2']})")
+    check(res["counts_2x2"] == (1,) * 6, f"(2, 2) step: one launch each of K1, K2, K3, the "
+          f"binning and the preprocess pair on this rank (got {res['counts_2x2']})")
     whole = (gather_params(p, mesh.gauss), gather_params(a.mu, mesh.gauss), float(aux["loss"]))
     whole_stats = gather_params(stats, mesh.gauss)
     if axis.index == 0:
@@ -4066,7 +4251,7 @@ def parallel_training(check, dev, axis, data: dict, tag: str) -> dict:
         p, a, stats, aux = tstep(*state, cams[0], targets[0], PAR_STEP_IT)
         torch.cuda.synchronize()
     res["counts_tile"] = launches()
-    check(res["counts_tile"] == (1, 1, 1, 0, 0), f"tile-sharded step: one launch each of K1, K2, "
+    check(res["counts_tile"] == (1, 1, 1, 0, 0, 0), f"tile-sharded step: one launch each of K1, K2, "
           f"K3 on this rank, none of the binning (got {res['counts_tile']})")
     res["errs"] = check_recorded(check, recs, tag, "tile-sharded train step (this rank's band)")
     recs.clear()
@@ -4130,8 +4315,9 @@ def parallel_coarse(check, dev, axis, data: dict, tag: str) -> dict:
                          [iteration_generator(0, it + j, dev) for j in range(2)])
         torch.cuda.synchronize()
     res["counts"] = launches()
-    check(res["counts"] == (2, 2, 2, 2, 0), f"(2, 2) coarse 'sdf' step: two launches each of K1, "
-          f"K2, K3 and the binning on this rank, image and depth (got {res['counts']})")
+    check(res["counts"] == (2, 2, 2, 2, 1, 1), f"(2, 2) coarse 'sdf' step: two launches each of "
+          f"K1, K2, K3 and the binning on this rank, image and depth, one of the preprocess pair "
+          f"(the image) (got {res['counts']})")
     whole = (gather_params(p, mesh.gauss), gather_params(a.mu, mesh.gauss), float(aux["loss"]))
     if axis.index == 0:
         def reference():
@@ -4183,7 +4369,7 @@ def parallel_refine(check, dev, axis, data: dict, tag: str) -> dict:
         p, a, aux = step(p, a, cams, gts, PAR_STEP_IT)
         torch.cuda.synchronize()
     counts = launches()
-    check(counts == (1, 1, 1, 1, 0), f"(2, 2) refine step: one launch each of K1, K2, K3 and the "
+    check(counts == (1,) * 6, f"(2, 2) refine step: one launch each of K1, K2, K3, the preprocess pair and the "
           f"binning on this rank (got {counts})")
     whole = (gather_bound(p, mesh.gauss, sharded), gather_bound(a.mu, mesh.gauss, sharded),
              float(aux["loss"]))
@@ -4298,7 +4484,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
           f"{statistics.median(serve['ms']):.3f} ({', '.join(f'{v:.1f}' for v in serve['ms'])}); "
           f"collective bytes over the {VIEWS} views on rank 0 by op {json.dumps(by_op)}; peak "
           f"memory per rank {[round(rk['peak_gb'], 3) for rk in r['ranks']]} GB")
-    check(all(c[0][0] > 0 and c[1] == (1, 1, 1, 0, 0) and c[3] == (1, 1, 1, 0, 0)
+    check(all(c[0][0] > 0 and c[1] == (1, 1, 1, 0, 0, 0) and c[3] == (1, 1, 1, 0, 0, 0)
               for c in (rk["counts"] for rk in r["ranks"])),
           "no fallback: every rank launched K1 on (a), and K1, K2, K3 on (b) and (d)")
     print(f"[15] (d) training on {card}, {PAR_LAYOUT}: (2, 2) step median "
@@ -4310,7 +4496,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
           f"coarse {r['coarse_s']:.1f}, refine {r['refine_s']:.1f})")
 
     # (c) NCCL: world 1, and one rank per card where there are several.
-    nc_counts = (0,) * 5
+    nc_counts = (0,) * 6
     for world in sorted({1, torch.cuda.device_count()}):
         nc = run_ranks(nccl_rank, world, device="cuda", args=(data,))
         for f in nc["failures"]:
@@ -4332,7 +4518,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
                                             rng=np.random.default_rng(0), device="cuda")
     sh_s = time.perf_counter() - t0
     g_counts = [tuple(c) for c in sh["launches"]]
-    check(len(g_counts) == PAR_WORLD and all(c[0] > 0 and c[3] == c[0] and c[4] == 0 for c in g_counts),
+    check(len(g_counts) == PAR_WORLD and all(c[0] > 0 and c[3] == c[0] and c[4] == c[5] == 0 for c in g_counts),
           f"(g) every rank launched K1 and one binning a K1, the plain K1-K3 refused (per rank "
           f"{g_counts})")
     t0 = time.perf_counter()
@@ -4343,7 +4529,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
     ne = float(np.abs(sh["normals"] - one["normals"]).max()) if same_n else float("inf")
     print(f"[15] (g) level set, {LEVELSET_CAMS} cameras of [10] over {PAR_WORLD} ranks on "
           f"{card}: {sh_s:.1f} s wall ({one_s:.1f} s on one rank); {len(sh['points'])} points; "
-          f"max|points diff| {pe:.3e}, max|normals diff| {ne:.3e}; launches (K1, K2, K3, binning, preprocess) per "
+          f"max|points diff| {pe:.3e}, max|normals diff| {ne:.3e}; launches (K1, K2, K3, binning, preprocess, preprocess bwd) per "
           f"rank {g_counts}")
     check(same_n and pe <= 1e-5 and ne <= 1e-4
           and np.array_equal(sh["gaussian_idx"], one["gaussian_idx"]),
@@ -4389,9 +4575,10 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
             stage = [tuple(c) for r in recs if r.get("event") == "kernel_launches"
                      for c in r["per_rank"]]
             h_counts[name] = stage
-            check(len(stage) == PAR_WORLD and all(min(c[:4]) > 0 and c[3] == c[0] and c[4] == 0 for c in stage),
-                  f"(h) {name}: every rank launched K1, K2, K3 and one binning a K1, the plain "
-                  f"versions refused (per rank {stage})")
+            check(len(stage) == PAR_WORLD and all(min(c[:4]) > 0 and c[3] == c[0] and c[4] == c[5] and 0 < c[4] <= c[0]
+                                                  for c in stage),
+                  f"(h) {name}: every rank launched K1, K2, K3, one binning a K1 and the "
+                  f"preprocess pair once a step, the plain versions refused (per rank {stage})")
         if inner:
             print(f"[15] (h) {name}: {walls[name]:.2f} s wall, of which the ranks' loop "
                   f"{inner[-1]:.2f} s by rank 0's last log")
@@ -4400,7 +4587,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
     n_refined = load_gaussian_ply(art["refine"])["xyz"].shape[0]
     print(f"[15] (h) pipeline with devices={PAR_WORLD} (2 x 2) on [13]'s scene, {PAR_LAYOUT}: "
           f"stages {json.dumps({k: round(x, 2) for k, x in walls.items()})} s; mesh {len(v)} "
-          f"vertices, {len(f)} faces; refined {n_refined} Gaussians; launches (K1, K2, K3, binning, preprocess) per "
+          f"vertices, {len(f)} faces; refined {n_refined} Gaussians; launches (K1, K2, K3, binning, preprocess, preprocess bwd) per "
           f"rank {json.dumps(h_counts)}")
     check(all(os.path.exists(a) for a in art.values()) and len(v) > 100 and len(f) > 100
           and vc is not None and n_refined == 6 * len(f)
@@ -4411,7 +4598,7 @@ def phase_parallel(check, dev, card, view_caps, targets, coarse, mesh) -> dict:
     wall = time.perf_counter() - t15
     gh_counts = tuple(sum(c) for c in zip(*g_counts, *(c for cs in h_counts.values()
                                                          for c in cs)))
-    print(f"[15] summary on {card}: {wall:.1f} s; launches (K1, K2, K3, binning, preprocess) over the world-4 "
+    print(f"[15] summary on {card}: {wall:.1f} s; launches (K1, K2, K3, binning, preprocess, preprocess bwd) over the world-4 "
           f"ranks "
           f"{k_counts} (per rank {per_rank}), NCCL {nc_counts}, level set and pipeline "
           f"{gh_counts}; kernels vs plain in the ranks {json.dumps(errs)}")
@@ -4465,11 +4652,12 @@ def phase_tools(check, card) -> dict:
     # Each scene: one check forward (K1), one warm-up and ITERS timed fwd+bwd;
     # one binning a render.
     renders = timed + 2 * (bench.ITERS + 2)
-    want = (renders, timed + 2 * (bench.ITERS + 1), timed + 2 * (bench.ITERS + 1), renders, 0)
-    print(f"[16] bench launches (K1, K2, K3, binning, preprocess) {counts['bench']} (train step {warm} warm-up + "
+    want = (renders, timed + 2 * (bench.ITERS + 1), timed + 2 * (bench.ITERS + 1), renders, timed,
+            timed)
+    print(f"[16] bench launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts['bench']} (train step {warm} warm-up + "
           f"{bench.ITERS} timed, caps {bench_recs[0]['caps']}; expected {want})")
     check(counts["bench"] == want, "[16] bench: one K1 and one binning per render, one K2 and K3 "
-          "per backward")
+          "per backward, the preprocess pair once per train step")
     errs = check_recorded(check, recs, "[16]",
                           "bench fwd+bwd, 1M trained scene (its last iteration)")
     check(set(errs) == {"K1", "K2", "K3"}, "[16] bench's last K1, K2 and K3 launches recorded")
@@ -4485,9 +4673,9 @@ def phase_tools(check, card) -> dict:
             res = fn()
             counts[name] = launches()
         d = float((res["image_stages"] - res["image_one_call"]).abs().max())
-        print(f"[16] {name}: launches (K1, K2, K3, binning, preprocess) {counts[name]}; counts "
+        print(f"[16] {name}: launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts[name]}; counts "
               f"{json.dumps(res['counts'])}; stage-by-stage image vs one-call render {d}")
-        check(all(c > 0 for c in counts[name][:4]) and counts[name][4] == 0,
+        check(all(c > 0 for c in counts[name][:4]) and counts[name][4] == counts[name][5] == 0,
               f"[16] {name} launched K1, K2, K3 and the binning, and no preprocess kernel")
         check(d <= STAGE_IMAGE_ATOL, f"[16] {name}: the stage-by-stage image equals the one-call "
                                      f"render within {STAGE_IMAGE_ATOL}")
@@ -4503,7 +4691,7 @@ def phase_tools(check, card) -> dict:
             reset_launches()
             recs_ = fn()
             counts[name] = launches()
-        check(counts[name] == (0,) * 5, f"[16] {name} runs no compositing, binning or preprocess "
+        check(counts[name] == (0,) * 6, f"[16] {name} runs no compositing, binning or preprocess "
                                           f"kernel")
         check(all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in recs_),
               f"[16] {name}: every time finite and positive")
@@ -4517,7 +4705,7 @@ def phase_tools(check, card) -> dict:
     print(f"[16] summary on {card}: {wall:.1f} s; bench "
           + ", ".join(f"{r['metric']} {r['value']:.0f} rays/s (median {r['ms_median']:.3f} ms, "
                       f"{r['ms_min']:.3f}-{r['ms_max']:.3f})" for r in lines)
-          + f"; launches (K1, K2, K3, binning, preprocess) all {total}; kernels vs plain {json.dumps(errs)}")
+          + f"; launches (K1, K2, K3, binning, preprocess, preprocess bwd) all {total}; kernels vs plain {json.dumps(errs)}")
     return dict(launches=total, errs=errs, wall_s=wall)
 
 
@@ -4589,9 +4777,9 @@ def phase_channels(check, dev, model, cam, caps, card) -> dict:
         groups = len(tc_mod.channel_groups(ch))
         blocks = -(-(6 + ch) // segsum_mod.MAX_ROWS)
         ovf = adaptive.read_overflow(out)
-        print(f"[17] C = {ch}: launches (K1, K2, K3, binning, preprocess) {counts[ch]} ({groups} channel groups, "
+        print(f"[17] C = {ch}: launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts[ch]} ({groups} channel groups, "
               f"{blocks} row blocks of {6 + ch} rows); overflow {json.dumps(ovf)}")
-        check(counts[ch] == (groups, groups, blocks, 1, 0),
+        check(counts[ch] == (groups, groups, blocks, 1, 0, 0),
               f"[17] C = {ch}: one K1 and one K2 launch per channel group, one K3 per row block, "
               f"one binning")
         check(all(ovf[k] == 0 for k in ("bin_overflow", "big_overflow", "cap_overflow",
@@ -4662,9 +4850,12 @@ def phase_channels(check, dev, model, cam, caps, card) -> dict:
               f"({sorted(used)}), host-staged bytes under gloo")
         check(all(p is not None and 0 < p < 80 for p in r["peak_gb_by_rank"]),
               f"[17] bench scale {r['step']}: peak GB per rank {r['peak_gb_by_rank']}")
-        check(all(all(c > 0 for c in rank[:4]) and rank[4] == 0 for rank in r["launches"]),
-              f"[17] bench scale: every rank launched K1, K2, K3 and the binning, and no "
-              f"preprocess kernel {r['launches']}")
+        # Each rank's launches are its totals over both steps: the preprocess
+        # pair runs in the coarse step's image render only.
+        check(all(all(c > 0 for c in rank[:4]) and rank[4] == rank[5] > 0
+                  for rank in r["launches"]),
+              f"[17] bench scale: every rank launched K1, K2, K3, the binning and the "
+              f"preprocess pair {r['launches']}")
     wall_b = time.perf_counter() - t1
     total = tuple(sum(c) for c in zip(*counts.values()))
     print(f"[17] summary on {card}: (a) {wall_a:.1f} s, (b) {wall_b:.1f} s; launches (K1, K2, K3, "
@@ -4884,11 +5075,12 @@ def phase_pipeline_width(check, dev, card) -> dict:
           and len(train_idx) == PIPE_VIEWS - 2,
           f"[18] the COLMAP scene loads whole: {PIPE_VIEWS} views at {H}x{W}, {TRAIN_N} points, "
           f"views 0 and 8 held out")
-    want = {"vanilla": (PIPE_VANILLA_ITERS,) * 4 + (0,),
-            "coarse": (COARSE_END - PIPE_COARSE_START + COARSE_END - COARSE_MILESTONE,) * 4 + (0,),
-            "extract_mesh": (len(train_idx), 0, 0, len(train_idx), 0),
-            "refine": (REFINE_ITERS,) * 4 + (0,),
-            "texture": (len(train_idx), 0, 0, len(train_idx), 0)}
+    want = {"vanilla": (PIPE_VANILLA_ITERS,) * 6,
+            "coarse": (COARSE_END - PIPE_COARSE_START + COARSE_END - COARSE_MILESTONE,) * 4
+            + (COARSE_END - PIPE_COARSE_START,) * 2,
+            "extract_mesh": (len(train_idx), 0, 0, len(train_idx), 0, 0),
+            "refine": (REFINE_ITERS,) * 6,
+            "texture": (len(train_idx), 0, 0, len(train_idx), len(train_idx), 0)}
     errs: dict[str, float] = {}
     for name in PIPE_STAGES:
         st = stages[name]
@@ -4897,7 +5089,7 @@ def phase_pipeline_width(check, dev, card) -> dict:
         steps = [r for tag, r in logs if tag == name and "loss" in r]
         events = collections.Counter(r.get("event") for tag, r in logs
                                      if tag == name and r.get("event"))
-        print(f"[18] {name}: {st['wall_s']:.2f} s wall, launches (K1, K2, K3, binning, preprocess) "
+        print(f"[18] {name}: {st['wall_s']:.2f} s wall, launches (K1, K2, K3, binning, preprocess, preprocess bwd) "
               f"{st['launches']}, "
               f"peak {st['peak_gb']:.3f} GB (allocated at its start {st['start_gb']:.3f}), "
               f"hand-off {st['handoff_s']:.3f} s ("
@@ -4909,7 +5101,7 @@ def phase_pipeline_width(check, dev, card) -> dict:
               + (f"; events {dict(events)}" if events else ""))
         for r in (r for tag, r in logs if tag == name and r.get("event") == "cap_grow"):
             print(f"    {json.dumps(r)}")
-        check(st["launches"] == want[name], f"[18] {name}: launches (K1, K2, K3, binning, preprocess) "
+        check(st["launches"] == want[name], f"[18] {name}: launches (K1, K2, K3, binning, preprocess, preprocess bwd) "
               f"{want[name]}")
         check(all(math.isfinite(r["loss"]) for r in steps), f"[18] {name}: every loss finite")
         for k, v in st["errs"].items():
@@ -4987,19 +5179,17 @@ def phase_pipeline_width(check, dev, card) -> dict:
     out2 = os.path.join(root, "entry")
     refined2 = entry("train_refined", lambda: train_refined.main(
         ["-s", scene_dir, "-m", art["mesh"], "-o", out2, "-f", str(ENTRY_REFINE_ITERS)], device=dev),
-        (ENTRY_REFINE_ITERS,) * 4 + (0,))
+        (ENTRY_REFINE_ITERS,) * 6)
     r2 = load_ply(refined2, device=dev)
     obj2 = os.path.join(out2, "textured.obj")  # the script makes no directory, as JAX's
     entry("extract_refined_mesh_with_texture", lambda: extract_refined_mesh_with_texture.main(
         ["-s", scene_dir, "-m", state, "-o", obj2], device=dev),
-        (len(train_idx), 0, 0, len(train_idx), 0))
+        (len(train_idx), 0, 0, len(train_idx), len(train_idx), 0))
     same_tex = np.array_equal(read_png(os.path.splitext(obj2)[0] + ".png"), png)
     res = entry("metrics", lambda: metrics_script.main(
         ["--scene_path", scene_dir, "--checkpoint", art["vanilla"], "--refined_state", state,
          "--textured_obj", art["textured"], "--output", os.path.join(out2, "metrics.json")],
-        device=dev), (lambda g: g[0] > g[4] > 0 and g[1:3] == (0, 0) and g[3] == g[0],
-                      "(> 0, 0, 0, = K1, > 0 and < K1: the PLY's renders take the preprocess "
-                      "kernel, the refined state's render_bound does not)"))
+        device=dev), None)
     scores = {k: (v["psnr"], v["ssim"]) for k, v in res.items()}
     print(f"[18] entry points on {card}: " + ", ".join(
         f"{k} {ep_walls[k]:.2f} s {ep_counts[k]}" for k in ep_walls)
@@ -5025,7 +5215,7 @@ def phase_pipeline_width(check, dev, card) -> dict:
     skipped, rcounts, resume_s = resumed_run(rerun)
     print(f"[18] resumed run: {resume_s:.2f} s, stage_skip events {skipped}, launches (K1, K2, K3, "
           f"binning) {rcounts}")
-    check(skipped == list(PIPE_STAGES) and rcounts == (0,) * 5 and again["art"] == art,
+    check(skipped == list(PIPE_STAGES) and rcounts == (0,) * 6 and again["art"] == art,
           "[18] a resumed run skips all five stages and launches no kernel")
     # The textured OBJ (with its MTL and PNG) stays for [19]'s run_viewer.
     kept = os.path.join(WORK, "textured_18")
@@ -5040,7 +5230,7 @@ def phase_pipeline_width(check, dev, card) -> dict:
           f"{load_s:.2f} s, pipeline {pipe_s:.2f} s with its kernel checks); stages "
           + ", ".join(f"{k} {v['wall_s']:.2f} s / {v['peak_gb']:.2f} GB / hand-off "
                       f"{v['handoff_s']:.2f} s" for k, v in stages.items())
-          + f"; launches (K1, K2, K3, binning, preprocess) all {total}; kernels vs plain {json.dumps(errs)}")
+          + f"; launches (K1, K2, K3, binning, preprocess, preprocess bwd) all {total}; kernels vs plain {json.dumps(errs)}")
     return dict(launches=total, errs=errs, wall_s=wall,
                 textured=os.path.join(kept, os.path.basename(art["textured"])))
 
@@ -5186,7 +5376,7 @@ def parity_protocol(check, dev, card: str, tag: str, iters, out_json: str, workd
                       for k in ("vanilla", "coarse_sdf", "refined"))
           + f"; mesh {st['mesh']['vertices']} vertices / {st['mesh']['faces']} faces")
     for label, t in timed.items():
-        print(f"{tag} {label}: {t['wall_s']:.2f} s, launches (K1, K2, K3, binning, preprocess) {t['launches']}, "
+        print(f"{tag} {label}: {t['wall_s']:.2f} s, launches (K1, K2, K3, binning, preprocess, preprocess bwd) {t['launches']}, "
               f"peak "
               f"{t['peak_gb']:.3f} GB (allocated at its start {t['start_gb']:.3f})")
 
@@ -5256,21 +5446,23 @@ def parity_protocol(check, dev, card: str, tag: str, iters, out_json: str, workd
     check(len(seen["levelset"]) == len(train_idx), f"{tag} the level set renders each of the "
           f"{len(train_idx)} train cameras once")
     sdf_from = v_it + int(c_it * 0.3)
-    want = {"vanilla": (v_it,) * 4 + (0,), "coarse": (c_it + v_it + c_it - sdf_from,) * 4 + (0,),
-            "extract_mesh": (len(train_idx), 0, 0, len(train_idx), 0),
-            "refine": (r_it,) * 4 + (0,)}
+    want = {"vanilla": (v_it,) * 6,
+            "coarse": (c_it + v_it + c_it - sdf_from,) * 4 + (c_it,) * 2,
+            "extract_mesh": (len(train_idx), 0, 0, len(train_idx), 0, 0),
+            "refine": (r_it,) * 6}
     for name, w in want.items():
-        check(timed[name]["launches"] == w, f"{tag} {name}: launches (K1, K2, K3, binning, preprocess) {w}")
+        check(timed[name]["launches"] == w, f"{tag} {name}: launches (K1, K2, K3, binning, preprocess, preprocess bwd) {w}")
     for label, t in timed.items():
         if label not in want:
             check(t["launches"][0] >= len(scene.cameras if label == "scene" else test_idx)
                   and t["launches"][1:3] == (0, 0)
-                  and t["launches"][3] == t["launches"][4] == t["launches"][0],
+                  and t["launches"][3] == t["launches"][4] == t["launches"][0]
+                  and t["launches"][5] == 0,
                   f"{tag} {label}: K1 at least once per view and one binning and one preprocess "
-                  f"a K1, no K2 or K3")
+                  f"a K1, no K2, K3 or preprocess backward")
     check(0 < alive["coarse"] <= alive["vanilla"] <= capacity, f"{tag} 0 < coarse alive <= "
           f"vanilla alive <= capacity")
-    launches = tuple(sum(t["launches"][k] for t in timed.values()) for k in range(5))
+    launches = tuple(sum(t["launches"][k] for t in timed.values()) for k in range(6))
     return dict(results=res, written=written, timed=timed, logs=logs, alive=alive,
                 qem=seen["qem"], init=init_r, scene=scene, target=seen["target"], cfg=cfg, art=art,
                 errs=errs,
@@ -5405,7 +5597,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
             ["--out", os.path.join(root, "again.json"), "--workdir", workdir], device=dev), None)
     print(f"[19] run_parity.main again on the same workdir: "
           f"{walls['run_parity.main again']:.2f} s, "
-          f"stage_skip {skips}, launches (K1, K2, K3, binning, preprocess) {counts['run_parity.main again']}")
+          f"stage_skip {skips}, launches (K1, K2, K3, binning, preprocess, preprocess bwd) {counts['run_parity.main again']}")
     check(skips == list(PARITY_STAGES) and again["stages"] == pa["results"]["stages"],
           "[19] run_parity.main again: every training stage skips, the scores are the first run's")
 
@@ -5461,7 +5653,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
           "[19] resolution factor 2: half-size cameras (same pose and field of view), images "
           "near a 2x2 box filter")
     check(float((views[1] - mem).abs().max()) <= 1e-4 and tuple(views[2].shape) == (h2, h2, 3)
-          and bool(torch.isfinite(views[2]).all()) and view_counts == (3, 0, 0, 3, 3),
+          and bool(torch.isfinite(views[2]).all()) and view_counts == (3, 0, 0, 3, 3, 0),
           "[19] the vanilla model renders the loaded cameras as the in-memory ones")
     del loaded, half, test_scene, views, mem
 
@@ -5491,7 +5683,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
                  lambda **kw: dataclasses.replace(cfg, **kw)):
         mesh2 = entry("extract_mesh", lambda: extract_mesh_script.main(
             ["-s", nerf, "-c", art["coarse"], "-o", os.path.join(root, "extract")], device=dev),
-            (len(train_idx), 0, 0, len(train_idx), 0))
+            (len(train_idx), 0, 0, len(train_idx), 0, 0))
     mv, mf, _ = load_mesh_ply(art["extract_mesh"])
     mv2, mf2, _ = load_mesh_ply(mesh2)
     gap = mesh_gap((mv, mf), (mv2, mf2))
@@ -5509,7 +5701,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
     abl = {}
     for name, fn in (("centers", lambda m, cams: extract_mesh_from_gaussian_centers(m, cams)),
                      ("marching cubes", lambda m, cams: extract_mesh_with_marching_cubes(m))):
-        v, f = entry(f"ablation {name}", lambda: fn(c_model, train_cams), (0,) * 5)
+        v, f = entry(f"ablation {name}", lambda: fn(c_model, train_cams), (0,) * 6)
         abl[name] = (len(v), len(f), float(np.median(np.linalg.norm(v, axis=1))))
     small = {}
     for dname in (dev, "cpu"):
@@ -5600,7 +5792,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
     # run_viewer on the refined PLY and [18]'s textured OBJ.
     viewer = os.path.join(root, "viewer")
     desc = entry("run_viewer", lambda: run_viewer.main(
-        ["-p", art["refine"], "-m", textured_obj, "--viewer_dir", viewer]), (0,) * 5)
+        ["-p", art["refine"], "-m", textured_obj, "--viewer_dir", viewer]), (0,) * 6)
     with open(desc) as f:
         d = json.load(f)
     print(f"[19] run_viewer: {walls['run_viewer']:.2f} s; descriptor {json.dumps(d)}")
@@ -5610,7 +5802,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
           "[19] run_viewer's descriptor loads back and names the refined PLY, the OBJ and its PNG")
     shutil.rmtree(root, ignore_errors=True)
 
-    total = tuple(pa["launches"][k] + sum(c[k] for c in counts.values()) for k in range(5))
+    total = tuple(pa["launches"][k] + sum(c[k] for c in counts.values()) for k in range(6))
     wall = time.perf_counter() - t_phase
     print(f"[19] summary on {card}: {wall:.1f} s (run_parity.main {pa['wall_s']:.1f} s); stages "
           + ", ".join(f"{k} {pa['timed'][k]['wall_s']:.2f} s / {pa['timed'][k]['peak_gb']:.2f} GB"
@@ -5618,7 +5810,7 @@ def phase_parity_width(check, dev, card, textured_obj: str) -> dict:
           + "; PSNR " + ", ".join(f"{k} {pa['results']['stages'][k]['psnr']:.3f}"
                                   for k in ("vanilla", "coarse_sdf", "refined"))
           + f" dB; (b) " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
-          + f"; launches (K1, K2, K3, binning, preprocess) all {total}; kernels vs plain {json.dumps(errs)}")
+          + f"; launches (K1, K2, K3, binning, preprocess, preprocess bwd) all {total}; kernels vs plain {json.dumps(errs)}")
     return dict(launches=total, errs=errs, wall_s=wall)
 
 
@@ -5798,7 +5990,7 @@ def main() -> int:
     serve_counts = launches()
     print(f"[4] serving: {VIEWS} views, {renders} renders (incl. cap growth), launches "
           f"(K1, K2, K3, binning, preprocess) {serve_counts}, {slice_s:.2f} s wall")
-    check(serve_counts == (renders, 0, 0, renders, renders) and renders >= VIEWS,
+    check(serve_counts == (renders, 0, 0, renders, renders, 0) and renders >= VIEWS,
           "one K1, one binning and one preprocess launch per render, no backward")
     # Whether a whole served view still waits on the host anywhere: printed,
     # not checked.
@@ -5949,7 +6141,7 @@ def main() -> int:
           f"refine step median {rf['step_ms']:.3f} ms, device busy {rf['busy_ms']:.3f} ms of "
           f"{rf['wall_ms']:.3f} ms profiled (idle share {1.0 - rf['busy_ms'] / rf['wall_ms']:.3f}), "
           f"peak {rf['peak_gb']:.3f} GB; refine window {rf['wall_s']:.2f} s, resume "
-          f"{rf['resume_s']:.2f} s; launches (K1, K2, K3, binning, preprocess) training [7] {tr['launches']}, "
+          f"{rf['resume_s']:.2f} s; launches (K1, K2, K3, binning, preprocess, preprocess bwd) training [7] {tr['launches']}, "
           f"mesh "
           f"[10] {ex['launches']}, refine [11] {rf['launches']}")
 
@@ -5968,7 +6160,7 @@ def main() -> int:
           f"stages "
           + ", ".join(f"{k} {v:.2f} s" for k, v in pl["walls"].items())
           + "; PSNR " + ", ".join(f"{k} {v[0]:.3f}" for k, v in pl["scores"].items())
-          + f" dB; launches (K1, K2, K3, binning, preprocess) bake [12] {tx['launches']}, pipeline [13] "
+          + f" dB; launches (K1, K2, K3, binning, preprocess, preprocess bwd) bake [12] {tx['launches']}, pipeline [13] "
           f"{pl['launches']}")
 
     # [14] the two-pass path at full width and the tiled mode; the oracle
@@ -6020,7 +6212,7 @@ def main() -> int:
     pp = phase_parity_width(check, dev, card, pw["textured"])
     shutil.rmtree(WORK, ignore_errors=True)
 
-    k1n, k2n, k3n, binn, pren = (sum(c) for c in zip(tr["launches"], ex["launches"], rf["launches"],
+    k1n, k2n, k3n, binn, pren, prebn = (sum(c) for c in zip(tr["launches"], ex["launches"], rf["launches"],
                                                tx["launches"], pl["launches"], launches14,
                                                pr["launches"], tl["launches"], wc["launches"],
                                                pw["launches"], pp["launches"]))
@@ -6036,6 +6228,7 @@ def main() -> int:
     later = (pr["errs"], tl["errs"], wc["errs"], pw["errs"], pp["errs"])
     (bin_row,) = [r for r in bn["rows"] if r["label"].startswith("vanilla_7k")]
     (pre_row,) = [r for r in pre["rows"] if r["label"].startswith("vanilla_7k")]
+    (pre_bwd_row,) = [r for r in pre["bwd_rows"] if r["label"].startswith("vanilla_7k")]
     k1_err = max(k1_err, ex["k1_err"], rf["errs"]["K1"], tx["k1_err"], pl["errs"]["K1"],
                  errs14["K1"], *(e.get("K1", 0.0) for e in later))
     k2_err = max(k2_err, rf["errs"]["K2"], pl["errs"]["K2"], errs14["K2"],
@@ -6071,6 +6264,13 @@ def main() -> int:
              replaces=None, launches=pren, max_abs_err=pre["max_abs_err"], ms=pre_row["ms"],
              plain_ms=pre_row["plain_ms"], bound_ms=pre_row["bound_ms"], bound_by="bytes",
              library_ms=None),
+        # [2c]'s vanilla_7k view: the backward kernel alone, its plain
+        # version (the autograd VJP of the torch ops), the bytes bound;
+        # max_abs_err the largest gap over max|g| of a field.
+        dict(name="preprocess_bwd", route="cuda", source="sugar_tpu_torch/csrc/preprocess.cu",
+             replaces=None, launches=prebn, max_abs_err=pre["bwd_max_err"],
+             ms=pre_bwd_row["ms"], plain_ms=pre_bwd_row["plain_ms"],
+             bound_ms=pre_bwd_row["bound_ms"], bound_by="bytes", library_ms=None),
     ]
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed: {check.failures}",

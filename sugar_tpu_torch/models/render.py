@@ -3,13 +3,13 @@
 Port of ``sugar_tpu/models/render.py``: builds raster settings from the
 camera and renders the model's raw fields on its device through
 ``raster.preprocess.preprocess_fields`` and
-``raster.api.rasterize_preprocessed``. ``preprocess_fields`` takes the
-activations and preprocess in one kernel launch on a CUDA device when the
-render needs no gradient (a served view, an evaluation render, a
-cap-settling pass), and as differentiable torch ops otherwise (every CPU
-tensor; every training render, until that kernel has a backward).
-``render_params`` is the training path's entry: differentiable in the raw
-params through sigmoid, exp and the quaternion normalization.
+``raster.api.rasterize_preprocessed``. On a CUDA device
+``preprocess_fields`` takes the activations and preprocess in one kernel
+launch, and a render that needs its gradient (a training render) their
+VJP in one launch of the backward kernel; on the CPU it takes
+differentiable torch ops. ``render_params`` is the training path's entry:
+differentiable in the raw params through sigmoid, exp and the quaternion
+normalization.
 """
 
 from __future__ import annotations

@@ -48,7 +48,8 @@ import torch.multiprocessing as mp
 from torch.multiprocessing.spawn import ProcessException
 
 from sugar_tpu_torch.raster.fused import bin_fused_cuda
-from sugar_tpu_torch.raster.preprocess import preprocess_fields_cuda
+from sugar_tpu_torch.raster.preprocess import (preprocess_fields_bwd_cuda,
+                                                 preprocess_fields_cuda)
 from sugar_tpu_torch.raster.segsum import segment_sum_cuda
 from sugar_tpu_torch.raster.tile_composite import tile_composite_bwd_cuda, tile_composite_cuda
 
@@ -92,18 +93,18 @@ def to_device(obj: Any, device) -> Any:
     return obj
 
 
-def kernel_launches() -> tuple[int, int, int, int, int]:
+def kernel_launches() -> tuple[int, int, int, int, int, int]:
     """This process's launches so far of K1, K2, K3 (the compositing
     forward and backward and the gradient segment-sum), of the binning
     kernels (one a ``bin_fused`` call on the card) and of the preprocess
-    kernel (one a render of raw fields on the card that needs no
-    gradient)."""
+    kernels (the forward one a ``preprocess_fields`` render on the card,
+    the backward one a backward through such a render)."""
     return (tile_composite_cuda.launches, tile_composite_bwd_cuda.launches,
             segment_sum_cuda.launches, bin_fused_cuda.launches,
-            preprocess_fields_cuda.launches)
+            preprocess_fields_cuda.launches, preprocess_fields_bwd_cuda.launches)
 
 
-def launches_by_rank(since: tuple[int, ...]) -> list[tuple[int, int, int, int, int]]:
+def launches_by_rank(since: tuple[int, ...]) -> list[tuple[int, int, int, int, int, int]]:
     """Every rank's K1-K3, binning and preprocess launches since its own
     ``since`` (an earlier :func:`kernel_launches`), gathered over the world
     in rank order."""

@@ -11,17 +11,21 @@ operands, which share a tie's gradient as JAX does.
 Dead/culled Gaussians are signalled by ``tiles_touched == 0`` rather than
 by compaction, keeping shapes fixed.
 
-``preprocess_fields`` starts from the model's raw fields (opacity logit,
-log scales, raw quaternions, SH DC and rest) and takes one of two routes:
+``preprocess_fields`` starts from the model's fields: the opacity logit,
+SH DC and rest, and either the raw log scales and quaternions or (the
+refined model's mesh-bound Gaussians) the built scales and unit
+quaternions. It takes one of two routes:
 
-- ``preprocess_fields_cuda``, when the fields lie on a CUDA device and the
-  render needs no gradient (grad mode off, or no field requires grad): one
-  launch of the hand-written kernel of ``csrc/preprocess.cu``, which
-  applies the activations, evaluates SH and projects in one pass and reads
-  nothing to the host. It has no backward.
-- ``preprocess_fields_plain`` otherwise (every CPU tensor, every render
-  that needs its gradient): the activations and SH concat, then
-  ``preprocess``, differentiable. It is the kernel's plain version.
+- on a CUDA device, the hand-written kernels of ``csrc/preprocess.cu``,
+  which apply the activations, evaluate SH and project in one pass and
+  read nothing to the host: ``preprocess_fields_cuda`` (one launch) for a
+  render that needs no gradient, ``PreprocessFields`` for one that does
+  (that launch, and one launch of ``preprocess_fields_bwd_cuda`` in the
+  backward). A CUDA tensor never takes the torch ops.
+- ``preprocess_fields_plain`` on every CPU tensor: the activations and SH
+  concat, then ``preprocess``, differentiable. It is the forward kernel's
+  plain version, and its autograd VJP (``preprocess_fields_bwd_plain``)
+  the backward kernel's.
 """
 
 from __future__ import annotations
@@ -268,61 +272,142 @@ def fields_need_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
+def _shape_fields(log_scales, quaternions, scales, unit_quaternions):
+    """(built, the scale field, the quaternion field): the raw log scales
+    and quaternions, or the built scales and unit quaternions."""
+    built = scales is not None or unit_quaternions is not None
+    if built and (scales is None or unit_quaternions is None
+                  or log_scales is not None or quaternions is not None):
+        raise ValueError("give log_scales and quaternions, or scales and unit_quaternions")
+    return (True, scales, unit_quaternions) if built else (False, log_scales, quaternions)
+
+
 def preprocess_fields(
     xyz: torch.Tensor,
     opacity_logit: torch.Tensor,
-    log_scales: torch.Tensor,
-    quaternions: torch.Tensor,
+    log_scales: torch.Tensor | None,
+    quaternions: torch.Tensor | None,
     sh_dc: torch.Tensor,
     sh_rest: torch.Tensor,
     settings: rc.RasterSettings,
     alive_mask: torch.Tensor | None = None,
     colors: torch.Tensor | None = None,
     ndc_offset: torch.Tensor | None = None,
+    scales: torch.Tensor | None = None,
+    unit_quaternions: torch.Tensor | None = None,
 ) -> Preprocessed:
-    """``Preprocessed`` from the model's raw fields: ``xyz`` (N, 3),
-    ``opacity_logit`` (N,), ``log_scales`` (N, 3), raw ``quaternions`` (N,
-    4), ``sh_dc`` (N, 3) and ``sh_rest`` (N, 3, K - 1), of which the
-    coefficients of ``settings.sh_degree`` are read; ``colors`` (N, C)
-    replaces SH. On a CUDA device, for a render that needs no gradient,
-    the kernel (``preprocess_fields_cuda``); otherwise the differentiable
-    torch ops (``preprocess_fields_plain``), until the kernel has a
-    backward."""
-    args = (xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, settings,
-            alive_mask, colors, ndc_offset)
-    if _on_card(xyz) and not fields_need_grad(
-            xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, colors, ndc_offset):
-        return preprocess_fields_cuda(*args)
-    return preprocess_fields_plain(*args)
+    """``Preprocessed`` from the model's fields: ``xyz`` (N, 3),
+    ``opacity_logit`` (N,), ``log_scales`` (N, 3) and raw ``quaternions``
+    (N, 4), or in their place the built ``scales`` (N, 3) and
+    ``unit_quaternions`` (N, 4), ``sh_dc`` (N, 3) and ``sh_rest`` (N, 3, K
+    - 1), of which the coefficients of ``settings.sh_degree`` are read;
+    ``colors`` (N, C) replaces SH. On a CUDA device the kernels: for a
+    render that needs no gradient ``preprocess_fields_cuda``, for one that
+    does ``PreprocessFields``; on the CPU the differentiable torch ops
+    (``preprocess_fields_plain``)."""
+    if colors is not None:
+        sh_dc = sh_rest = None  # unread under a colors override
+    fields = (xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest)
+    extra = (colors, ndc_offset, scales, unit_quaternions)
+    if not _on_card(xyz):
+        return preprocess_fields_plain(*fields, settings, alive_mask, *extra)
+    if fields_need_grad(*fields, *extra):
+        return Preprocessed(*PreprocessFields.apply(settings, alive_mask, *fields, *extra))
+    return preprocess_fields_cuda(*fields, settings, alive_mask, *extra)
 
 
 def preprocess_fields_plain(
     xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, settings,
-    alive_mask=None, colors=None, ndc_offset=None,
+    alive_mask=None, colors=None, ndc_offset=None, scales=None, unit_quaternions=None,
 ) -> Preprocessed:
     """The plain version of ``preprocess_fields_cuda``: sigmoid, exp, the
-    quaternion normalisation and the SH concat (the ``render.setup``
-    span), then ``preprocess``. Differentiable in every field."""
+    quaternion normalisation (none of the two for built scales and unit
+    quaternions) and the SH concat (the ``render.setup`` span), then
+    ``preprocess``. Differentiable in every field."""
+    built, s, q = _shape_fields(log_scales, quaternions, scales, unit_quaternions)
     with profiling.span("render.setup"):
         opacities = torch.sigmoid(opacity_logit)
-        scales = torch.exp(log_scales)
-        quats = quat_normalize(quaternions)
+        if not built:
+            s = torch.exp(s)
+            q = quat_normalize(q)
         shs = None
         if colors is None:
             k = (settings.sh_degree + 1) ** 2
             shs = torch.cat([sh_dc[:, :, None], sh_rest], dim=-1)[:, :, :k]
-    return preprocess(xyz, opacities, settings, scales=scales, quaternions=quats,
+    return preprocess(xyz, opacities, settings, scales=s, quaternions=q,
                       colors=colors, shs=shs, alive_mask=alive_mask, ndc_offset=ndc_offset)
 
 
-def _kernel_fn():
-    fn = native.load("preprocess").sugar_preprocess_fields
+class PreprocessFields(torch.autograd.Function):
+    """``preprocess_fields`` on the card for a render that needs its
+    gradient: the forward kernel (``preprocess_fields_cuda``, which counts
+    the launch) and in the backward one launch of the backward kernel
+    (``preprocess_fields_bwd_cuda``), which recomputes the forward from
+    the fields, saved by reference. Takes the settings, the alive mask and
+    the fields in ``preprocess_fields_bwd_cuda``'s gradient order; returns
+    the fields of ``Preprocessed`` in order, of which depth, radius, the
+    rects and tiles_touched carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, settings, alive_mask, *fields):
+        xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, *extra = fields
+        prep = preprocess_fields_cuda(xyz, opacity_logit, log_scales, quaternions, sh_dc,
+                                      sh_rest, settings, alive_mask, *extra)
+        ctx.save_for_backward(*fields)
+        ctx.settings = settings
+        ctx.mark_non_differentiable(prep.depth, prep.radius, prep.rect_min, prep.rect_max,
+                                    prep.tiles_touched)
+        return tuple(getattr(prep, f.name) for f in dataclasses.fields(Preprocessed))
+
+    @staticmethod
+    def backward(ctx, g_mean2d, _g_depth, g_conic, g_opacity, g_color, *_g_ints):
+        xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, *extra = ctx.saved_tensors
+        return (None, None) + preprocess_fields_bwd_cuda(
+            g_mean2d, g_conic, g_opacity, g_color, xyz, opacity_logit, log_scales, quaternions,
+            sh_dc, sh_rest, ctx.settings, None, *extra)
+
+
+# The gradients the backward returns, in order: of every field
+# preprocess_fields takes.
+GRAD_FIELDS = ("xyz", "opacity_logit", "log_scales", "quaternions", "sh_dc", "sh_rest", "colors",
+               "ndc_offset", "scales", "unit_quaternions")
+
+
+def preprocess_fields_bwd_plain(
+    g_mean2d, g_conic, g_opacity, g_color,
+    xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, settings,
+    alive_mask=None, colors=None, ndc_offset=None, scales=None, unit_quaternions=None,
+) -> tuple:
+    """The plain version of ``preprocess_fields_bwd_cuda``: the autograd
+    VJP of ``preprocess_fields_plain`` at the cotangents of mean2d, conic,
+    opacity and color. Same arguments and results."""
+    if colors is not None:
+        sh_dc = sh_rest = None
+    fields = (xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, colors, ndc_offset,
+              scales, unit_quaternions)
+    leaves = [None if f is None else f.detach().requires_grad_(True) for f in fields]
+    with torch.enable_grad():
+        prep = preprocess_fields_plain(*leaves[:6], settings, alive_mask, *leaves[6:])
+        got = iter(torch.autograd.grad(
+            (prep.mean2d, prep.conic, prep.opacity, prep.color),
+            [f for f in leaves if f is not None], (g_mean2d, g_conic, g_opacity, g_color),
+            allow_unused=True))
+    return tuple(None if f is None else next(got) for f in leaves)
+
+
+def _kernel_fn(name: str, argtypes: list):
+    fn = getattr(native.load("preprocess"), name)
     if fn.argtypes is None:
-        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([vp] * 6 + [i32, i32, vp, i32, vp, vp, vp, vp, vp, ctypes.c_longlong]
-                       + [i32] * 4 + [f32] * 5 + [vp] * 9 + [vp])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+_VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGS = ([_VP] * 6 + [_I32] * 3 + [_VP, _I32, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong]
+             + [_I32] * 4 + [_F32] * 5 + [_VP] * 9 + [_VP])
+_BWD_ARGS = ([_VP] * 6 + [_I32] * 3 + [_VP] * 3 + [ctypes.c_longlong] + [_I32] * 2
+             + [_F32] * 5 + [_VP] * 4 + [_VP] * 7 + [_VP])
 
 
 def _checked(name: str, x: torch.Tensor, shape: tuple, dtype, dev) -> torch.Tensor:
@@ -332,51 +417,75 @@ def _checked(name: str, x: torch.Tensor, shape: tuple, dtype, dev) -> torch.Tens
     return x.contiguous()
 
 
-def preprocess_fields_cuda(
-    xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, settings,
-    alive_mask=None, colors=None, ndc_offset=None,
-) -> Preprocessed:
-    """The CUDA route of ``preprocess_fields``: one launch of
-    ``csrc/preprocess.cu`` on the current stream, inside a
-    ``raster.preprocess`` span. Reads nothing to the host and copies
-    nothing to the card (the camera is read where it lies). Carries no
-    gradient: raises when the render needs one.
-    ``preprocess_fields_cuda.launches`` counts successful calls; while a
-    profiler collects it counts 1 under ``raster.preprocess_kernel``."""
-    if fields_need_grad(xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, colors,
-                        ndc_offset):
-        raise ValueError("preprocess_fields_cuda has no backward; the render needs a gradient")
+def _ptr(x: torch.Tensor | None):
+    return None if x is None else x.data_ptr()
+
+
+def _kernel_fields(xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, settings,
+                   colors, scales, unit_quaternions):
+    """The fields both kernels read, checked and made contiguous: (built,
+    xyz, opacity_logit, scale field, quaternion field, sh_dc, sh_rest, rest
+    coefficients, the camera's view, proj and campos); sh_dc and sh_rest
+    None under a colors override."""
     n, dev = xyz.shape[0], xyz.device
+    built, s, q = _shape_fields(log_scales, quaternions, scales, unit_quaternions)
     if not 0 <= settings.sh_degree <= 4:
         raise ValueError(f"SH degree {settings.sh_degree} is outside 0..4")
     f32 = torch.float32
-    xyz = _checked("xyz", xyz, (n, 3), f32, dev)
-    opacity_logit = _checked("opacity_logit", opacity_logit, (n,), f32, dev)
-    log_scales = _checked("log_scales", log_scales, (n, 3), f32, dev)
-    quaternions = _checked("quaternions", quaternions, (n, 4), f32, dev)
-    rest = sh_rest.shape[-1]
+    rest = 0
     if colors is None:
+        rest = sh_rest.shape[-1]
         need = (settings.sh_degree + 1) ** 2 - 1
         if need > rest:
             raise ValueError(f"SH degree {settings.sh_degree} needs {need} rest coefficients, "
                              f"sh_rest has {tuple(sh_rest.shape)}")
         sh_dc = _checked("sh_dc", sh_dc, (n, 3), f32, dev)
         sh_rest = _checked("sh_rest", sh_rest, (n, 3, rest), f32, dev)
-        ch = 3
     else:
         sh_dc = sh_rest = None
+    return (built, _checked("xyz", xyz, (n, 3), f32, dev),
+            _checked("opacity_logit", opacity_logit, (n,), f32, dev),
+            _checked("scales" if built else "log_scales", s, (n, 3), f32, dev),
+            _checked("unit_quaternions" if built else "quaternions", q, (n, 4), f32, dev),
+            sh_dc, sh_rest, rest,
+            _checked("viewmatrix", settings.viewmatrix, (4, 4), f32, dev),
+            _checked("projmatrix", settings.projmatrix, (4, 4), f32, dev),
+            _checked("campos", settings.campos, (3,), f32, dev))
+
+
+def _camera_args(settings: rc.RasterSettings) -> tuple:
+    return (settings.focal_x, settings.focal_y, rc.FOV_CLAMP * settings.tanfovx,
+            rc.FOV_CLAMP * settings.tanfovy, settings.scale_modifier)
+
+
+def preprocess_fields_cuda(
+    xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, settings,
+    alive_mask=None, colors=None, ndc_offset=None, scales=None, unit_quaternions=None,
+) -> Preprocessed:
+    """The forward kernel of ``preprocess_fields``: one launch of
+    ``csrc/preprocess.cu`` on the current stream, inside a
+    ``raster.preprocess`` span. Reads nothing to the host and copies
+    nothing to the card (the camera is read where it lies). It launches the
+    forward alone and records no backward: a render that needs a gradient
+    goes through ``PreprocessFields``, and this raises when called for one
+    outside it. ``preprocess_fields_cuda.launches`` counts successful
+    calls; while a profiler collects it counts 1 under
+    ``raster.preprocess_kernel``."""
+    n, dev, f32 = xyz.shape[0], xyz.device, torch.float32
+    built, xyz, opacity_logit, s, q, sh_dc, sh_rest, rest, view, proj, campos = _kernel_fields(
+        xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, settings, colors, scales,
+        unit_quaternions)
+    if fields_need_grad(xyz, opacity_logit, s, q, sh_dc, sh_rest, colors, ndc_offset):
+        raise ValueError("preprocess_fields_cuda records no backward; a render that needs a "
+                         "gradient goes through PreprocessFields")
+    ch = 3
+    if colors is not None:
         ch = colors.shape[-1]
         colors = _checked("colors", colors, (n, ch), f32, dev)
     if alive_mask is not None:
         alive_mask = _checked("alive_mask", alive_mask, (n,), torch.bool, dev)
     if ndc_offset is not None:
         ndc_offset = _checked("ndc_offset", ndc_offset, (n, 2), f32, dev)
-    view = _checked("viewmatrix", settings.viewmatrix, (4, 4), f32, dev)
-    proj = _checked("projmatrix", settings.projmatrix, (4, 4), f32, dev)
-    campos = _checked("campos", settings.campos, (3,), f32, dev)
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
 
     with profiling.span("raster.preprocess"):
         prep = Preprocessed(
@@ -391,15 +500,13 @@ def preprocess_fields_cuda(
             tiles_touched=torch.empty((n,), dtype=torch.int32, device=dev),
         )
         with torch.cuda.device(dev):
-            err = _kernel_fn()(
-                xyz.data_ptr(), opacity_logit.data_ptr(), log_scales.data_ptr(),
-                quaternions.data_ptr(), ptr(sh_dc), ptr(sh_rest), rest, settings.sh_degree,
-                ptr(colors), ch, ptr(alive_mask),
-                ptr(ndc_offset), view.data_ptr(), proj.data_ptr(), campos.data_ptr(), n,
-                settings.image_width, settings.image_height, settings.tiles_x,
-                settings.tiles_y, settings.focal_x, settings.focal_y,
-                rc.FOV_CLAMP * settings.tanfovx, rc.FOV_CLAMP * settings.tanfovy,
-                settings.scale_modifier,
+            err = _kernel_fn("sugar_preprocess_fields", _FWD_ARGS)(
+                xyz.data_ptr(), opacity_logit.data_ptr(), s.data_ptr(), q.data_ptr(),
+                _ptr(sh_dc), _ptr(sh_rest), rest, settings.sh_degree, int(built),
+                _ptr(colors), ch, _ptr(alive_mask), _ptr(ndc_offset), view.data_ptr(),
+                proj.data_ptr(), campos.data_ptr(), n, settings.image_width,
+                settings.image_height, settings.tiles_x, settings.tiles_y,
+                *_camera_args(settings),
                 *(getattr(prep, f.name).data_ptr() for f in dataclasses.fields(Preprocessed)),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
@@ -411,3 +518,62 @@ def preprocess_fields_cuda(
 
 
 preprocess_fields_cuda.launches = 0
+
+
+@profiling.spanned("raster.preprocess_bwd")
+def preprocess_fields_bwd_cuda(
+    g_mean2d, g_conic, g_opacity, g_color,
+    xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, settings,
+    alive_mask=None, colors=None, ndc_offset=None, scales=None, unit_quaternions=None,
+) -> tuple:
+    """The backward kernel of ``preprocess_fields``: one launch of
+    ``csrc/preprocess.cu``'s backward on the current stream, which
+    recomputes the forward from the fields (the forward's arguments, whose
+    values of ``alive_mask``, ``colors`` and ``ndc_offset`` it does not
+    read) and takes the VJP at the cotangents of mean2d (N, 2), conic (N,
+    3), opacity (N,) and color (N, C). Returns the gradients of (xyz,
+    opacity_logit, log_scales, quaternions, sh_dc, sh_rest, colors,
+    ndc_offset, scales, unit_quaternions) (``GRAD_FIELDS``), None for a
+    field not given and for sh_dc and sh_rest under a colors override;
+    sh_rest's is zero beyond the active degree and a colors override's is
+    its cotangent.
+    ``preprocess_fields_bwd_cuda.launches`` counts successful calls."""
+    n, dev, f32 = xyz.shape[0], xyz.device, torch.float32
+    built, xyz, opacity_logit, s, q, sh_dc, sh_rest, rest, view, proj, campos = _kernel_fields(
+        xyz, opacity_logit, log_scales, quaternions, sh_dc, sh_rest, settings, colors, scales,
+        unit_quaternions)
+    g_mean2d = _checked("g_mean2d", g_mean2d, (n, 2), f32, dev)
+    g_conic = _checked("g_conic", g_conic, (n, 3), f32, dev)
+    g_opacity = _checked("g_opacity", g_opacity, (n,), f32, dev)
+    g_sh = None
+    if sh_dc is not None:
+        g_sh = _checked("g_color", g_color, (n, 3), f32, dev)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=f32, device=dev)
+
+    g_xyz, g_ol, g_s, g_q = empty(n, 3), empty(n), empty(n, 3), empty(n, 4)
+    g_dc = g_rest = g_ndc = None
+    if sh_dc is not None:
+        g_dc, g_rest = empty(n, 3), empty(n, 3, rest)
+    if ndc_offset is not None:
+        g_ndc = empty(n, 2)
+    with torch.cuda.device(dev):
+        err = _kernel_fn("sugar_preprocess_fields_bwd", _BWD_ARGS)(
+            xyz.data_ptr(), opacity_logit.data_ptr(), s.data_ptr(), q.data_ptr(), _ptr(sh_dc),
+            _ptr(sh_rest), rest, settings.sh_degree, int(built), view.data_ptr(),
+            proj.data_ptr(), campos.data_ptr(), n, settings.image_width, settings.image_height,
+            *_camera_args(settings), g_mean2d.data_ptr(), g_conic.data_ptr(),
+            g_opacity.data_ptr(), _ptr(g_sh), g_xyz.data_ptr(), g_ol.data_ptr(),
+            g_s.data_ptr(), g_q.data_ptr(), _ptr(g_dc), _ptr(g_rest), _ptr(g_ndc),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"preprocess backward kernel launch failed: CUDA error {err}")
+    preprocess_fields_bwd_cuda.launches += 1
+    shape = (None, None, g_s, g_q) if built else (g_s, g_q, None, None)
+    return (g_xyz, g_ol, *shape[:2], g_dc, g_rest, None if colors is None else g_color, g_ndc,
+            *shape[2:])
+
+
+preprocess_fields_bwd_cuda.launches = 0

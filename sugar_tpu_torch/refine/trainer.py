@@ -10,9 +10,10 @@ with spatial_lr_scale = 10 * bbox_radius / sqrt(n_vertices) (:455-460);
 position_lr_* are scaled by 0.01 relative to free-Gaussian training.
 
 The step runs eagerly on the params' device with autograd over the
-``BoundParams`` leaves: on CUDA tensors the render goes through K1 and its
-backward through K2 and K3 (one launch of each per step); the per-Gaussian
-gradients then flow through the barycentric gathers and
+``BoundParams`` leaves: on CUDA tensors the render goes through the
+preprocess kernel and K1, and its backward through K2, K3 and the
+preprocess backward kernel (one launch of each per step); the
+per-Gaussian gradients then flow through the barycentric gathers and
 ``matrix_to_quaternion`` into the mesh vertices.
 """
 
@@ -30,7 +31,8 @@ from sugar_tpu_torch.core.cameras import Camera
 from sugar_tpu_torch.io import ply as ply_io
 from sugar_tpu_torch.raster import adaptive
 from sugar_tpu_torch.raster import common as rc
-from sugar_tpu_torch.raster.api import rasterize_gaussians
+from sugar_tpu_torch.raster.api import rasterize_preprocessed
+from sugar_tpu_torch.raster.preprocess import preprocess_fields
 from sugar_tpu_torch.refine import bound as B
 from sugar_tpu_torch.trainers import optimizer as opt
 from sugar_tpu_torch.trainers.schedule import CameraSchedule
@@ -143,29 +145,23 @@ def render_bound(
     big_cap: int | None = None,
 ) -> dict:
     """Render the bound Gaussians; differentiable in every field of
-    ``params``."""
+    ``params``. The centres, scales and unit quaternions are built from the
+    mesh (``bound.gaussians``); ``preprocess_fields`` takes them with the
+    opacity logit and SH as they are (on the card the preprocess kernels'
+    built instantiation)."""
     with profiling.span("bound.gaussians"):
-        arrs = B.to_gaussian_arrays(params, bm)
+        centers = B.gaussian_centers(params, bm)
+        scales = B.gaussian_scales(params, bm)
+        quats = B.gaussian_quaternions(params, bm)
     with profiling.span("render.setup"):
         settings = dataclasses.replace(
             rc.from_camera(camera, bg=bg, device=params.vertices.device),
             sh_degree=active_sh_degree,
         )
-    k = (active_sh_degree + 1) ** 2
-    return rasterize_gaussians(
-        arrs["centers"],
-        arrs["opacities"],
-        settings,
-        scales=arrs["scales"],
-        quaternions=arrs["quaternions"],
-        shs=arrs["sh"][:, :, :k],
-        mode=mode,
-        dup_capacity=dup_capacity,
-        k_max=k_max,
-        tile_cap=tile_cap,
-        cap_a=cap_a,
-        big_cap=big_cap,
-    )
+    prep = preprocess_fields(centers, params.opacity_logit, None, None, params.sh_dc,
+                             params.sh_rest, settings, scales=scales, unit_quaternions=quats)
+    return rasterize_preprocessed(prep, settings, mode=mode, dup_capacity=dup_capacity,
+                                  k_max=k_max, tile_cap=tile_cap, cap_a=cap_a, big_cap=big_cap)
 
 
 def refine_loss(

@@ -61,7 +61,7 @@ def test_collect_surface_points_sharded_matches_jax():
     t = collect_surface_points_sharded(WORLD, tm, tcams, rng=np.random.default_rng(9),
                                        device="cpu", **LEVELSET_KW)
     assert len(ref["points"]) > 50 and len(t["overflow"]) == 5
-    assert t["launches"] == [(0,) * 5] * WORLD  # CPU tensors run the plain versions
+    assert t["launches"] == [(0,) * 6] * WORLD  # CPU tensors run the plain versions
     for other in (ref, jsh):
         np.testing.assert_allclose(t["points"], other["points"], rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(t["normals"], other["normals"], rtol=1e-4, atol=1e-4)

@@ -69,7 +69,7 @@ def test_each_step_reports_bytes_for_the_ops_it_uses(tmp_path_factory, step):
     assert row["total"] == sum(row["counts"][op] for op in comm.OPS)
     assert row["counts"]["host_staged"] == 0  # CPU tensors are not staged
     assert row["peak_gb"] is None and row["ms"] > 0.0
-    assert row["launches"] == [(0,) * 5, (0,) * 5]  # the plain versions on the CPU
+    assert row["launches"] == [(0,) * 6, (0,) * 6]  # the plain versions on the CPU
 
 
 def test_the_toy_section_still_runs(tmp_path_factory):
